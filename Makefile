@@ -1,10 +1,15 @@
 # Convenience targets (the reference's cpu/makefile + gpu/makefile analog:
 # here the device code is jit-compiled, so `make` only builds the native
 # host runtime and drives tests/benchmarks).
+#
+#   make test     CPU test suite (GPU kernels in the Pallas interpreter)
+#   make gpu-test card-only tests, on a machine with a GPU
+#   make smoke    chip_smoke.py: the served path end to end on one GPU
+#   make bench    bench.py: frame times of the served path on the GPU
 
 PY ?= python
 
-.PHONY: all native test tpu-test bench sweep clean
+.PHONY: all native test gpu-test smoke bench sweep clean
 
 all: native
 
@@ -19,10 +24,11 @@ parallel_ray_tracer_tpu/native/librtnative.so: parallel_ray_tracer_tpu/native/sr
 test: native
 	PY=$(PY) bash scripts/run_tests.sh
 
-# Hardware-gated compiled matrix + reference parity, with committed
-# evidence (metrics/tpu_matrix.json). Requires a real TPU backend.
-tpu-test: native
-	PY=$(PY) bash scripts/run_tpu_tests.sh
+gpu-test: native
+	$(PY) -m pytest tests/ -q -m gpu
+
+smoke: native
+	$(PY) chip_smoke.py
 
 bench: native
 	$(PY) bench.py
@@ -30,6 +36,5 @@ bench: native
 sweep: native
 	$(PY) scripts/sweep.py
 
-# NOTE: metrics/ holds COMMITTED measurement evidence — never rm it here.
 clean:
 	rm -f parallel_ray_tracer_tpu/native/librtnative.so

@@ -1,10 +1,10 @@
-"""parallel_ray_tracer_tpu — a TPU-native differentiable ray tracing framework.
+"""parallel_ray_tracer_tpu — a differentiable ray tracing framework in JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
-deluf/parallel-ray-tracer (see SURVEY.md): pinhole-camera primary rays,
-Möller–Trumbore triangle + sphere intersection, 7-heuristic BVH, packet
-traversal Pallas kernels, Blinn-Phong shading with shadow rays and mirror
-bounces — extended with end-to-end differentiability and multi-host scaling.
+A JAX/XLA/Pallas rebuild of the capabilities of deluf/parallel-ray-tracer
+(see SURVEY.md): pinhole-camera primary rays, Möller–Trumbore triangle +
+sphere intersection, 7-heuristic BVH, per-ray GPU traversal kernels,
+Blinn-Phong shading with shadow rays and mirror bounces — extended with
+end-to-end differentiability and multi-device scaling.
 """
 
 __version__ = "0.1.0"

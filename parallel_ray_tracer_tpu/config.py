@@ -1,4 +1,4 @@
-"""Runtime configuration for the TPU ray tracer.
+"""Runtime configuration for the ray tracer.
 
 Every compile-time knob of the reference (cpu/include/options.h:1-74 and
 gpu/include/options.cuh) becomes a runtime field here, so a single build
@@ -33,13 +33,10 @@ RESOLUTIONS = {
 
 SCENES = ("car_only", "car_boxed", "dragon", "sportscar", "two_cars")
 
-# Default asset search path: repo-local assets first, then the read-only
-# reference mirror (assets are plain OBJ/MTL data, not code).
+# Default asset search path: the repo-local assets (OBJ/MTL directories or
+# npz snapshots); --asset-root points at a reference checkout instead.
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-DEFAULT_ASSET_ROOTS = (
-    os.path.join(_REPO_ROOT, "assets"),
-    "/root/reference/assets",
-)
+DEFAULT_ASSET_ROOTS = (os.path.join(_REPO_ROOT, "assets"),)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,25 +69,23 @@ class RenderConfig:
     iterations: int = 1
     warmup: int = 0                  # GPU harness uses 50 (gpu/include/options.cuh:25)
 
-    # Ray-tile shape for the Pallas kernel — the analog of the CUDA (tx, ty)
-    # block-shape sweep (gpu/src/gpu.cu:98-100). Lanes must be 128-aligned.
-    tile_rows: int = 8
-    tile_cols: int = 128
+    # Pixel-tile shape: rays are traced in tile-major order, so a packet
+    # ("jax") or a kernel block ("gpu") holds neighbouring pixels — the
+    # analog of the CUDA (tx, ty) block-shape sweep (gpu/src/gpu.cu:98-100).
+    tile_rows: int = 32
+    tile_cols: int = 32
 
-    # Kernel variant ladder, mirroring the reference's naive → fast_idx →
-    # float_align_compression → fuse benchmark story (gpu/*.bat):
-    #   "bruteforce": pure-JAX all-triangles oracle (USE_BVH=0 analog)
-    #   "jax": batched lax.while_loop BVH traversal (correct, portable)
-    #   "pallas": pass-based packet-traversal Pallas kernels
-    #   "fused": whole-frame single-launch kernel (headline path;
-    #            sphere-free resident scenes, bvh_width >= 4)
-    #   "auto": fused when the prepared state supports it, else pallas
-    #           (pipeline.Pipeline.resolved_variant) — so the default CLI
-    #           run IS the benchmark configuration.
+    # Tracer variant (pipeline.resolve_variant, ops/render.make_tracers):
+    #   "gpu": per-ray Pallas BVH traversal kernels (ops/gpu_trace.py)
+    #   "jax": vmapped lax.while_loop packet traversal, its plain-XLA
+    #          reference (ops/trace_bvh.py)
+    #   "bruteforce": all-triangles oracle (USE_BVH=0 analog)
+    #   "auto": "gpu"; fails without a GPU unless the kernel is
+    #           interpreted, so the default run is the served path.
     variant: str = "auto"
-    # bf16 AABB compression in the traversal kernel — the hbvh_t analog
-    # (gpu/include/bvh.cuh:14-28), with conservative rounding (min down/max up)
-    # instead of the reference's round-to-nearest.
+    # bf16 AABB compression — the hbvh_t analog (gpu/include/bvh.cuh:14-28),
+    # with conservative rounding (min down/max up) instead of the
+    # reference's round-to-nearest. Both BVH tracers read it.
     bf16_bvh: bool = False
 
     # Ambient light (cpu/src/main.c:36).
@@ -111,85 +106,40 @@ class RenderConfig:
     num_devices: int = 1
 
     # Use the C++ host runtime (native/src/rtnative.cpp) for scene loading
-    # and BVH build/flatten/pack; falls back to NumPy when no toolchain.
+    # and BVH build/flatten; falls back to NumPy when no toolchain.
     use_native: bool = True
-
-    # Traversal node arity for the Pallas kernels: 2, 4 or 8 binary levels
-    # collapsed per node row (one shared reduction culls and orders all
-    # children of a visit; 4 is the measured default on TPU).
-    bvh_width: int = 4
-
-    # Dual-pop traversal schedule: visit two pending inner nodes per loop
-    # iteration with one shared cross-lane reduction (never slower;
-    # measured -4% coherent to -18% on divergent bounce passes).
-    dual_pop: bool = True
-
-    # Wide-pop width: pending inner nodes visited per loop iteration
-    # (2, 4, or 8; > 2 requires dual_pop and bvh_width >= 4). The visits
-    # share one slab evaluation and one lane reduction, and their loads
-    # pipeline against each other's vector work — measured 225/147/107 ns
-    # per node at widths 2/4/8 (scripts/microbench_inner.py). Partial pops
-    # pad with the NULL node (NaN boxes, pushes nothing). With mxu_leaf,
-    # widths > 2 also pop FOUR leaf groups per MXU visit (one triple-dot,
-    # M = 128).
-    pop_width: int = 8
-
-    # Adaptive (width-switched) inner pops: instead of NULL-padding every
-    # visit to pop_width slots, branch on the pending-inner count and run
-    # the narrowest power-of-two visit body {2, 4, .., pop_width} that
-    # covers it. The visit profile shows the pending stack is usually far
-    # shallower than 8, so most fixed-width slab work was padding; the
-    # switch is image-identical (same pushes, same order) and measured
-    # 253.7 -> 236.6 ms on the car_boxed 1080p fused frame. Applies when
-    # pop_width > 2; with it on, the separate bounce-0 pop width (npop0)
-    # is unnecessary — narrow visits happen automatically.
-    adaptive_pop: bool = True
-
-    # Evaluate leaf Möller-Trumbore on the MXU: each leaf group carries a
-    # (32, 16) C-matrix of the four per-(ray, triangle) linear quantities
-    # and a visit is one (32,16)@(16,1024) matmul (bf16x3 operand split
-    # for f32-grade accuracy; see pallas_trace._mxu_leaf_closest).
-    # Measured ~1.6x the VPU leaf (433 -> 274 ns per 8-triangle visit).
-    # Applies to the dual-pop pallas kernels (bvh_width >= 4, leaf_size 8
-    # or 4 — at L=4 a visit batches twice as many groups into the same
-    # MXU row budget, see pallas_trace.default_nleaf; non-streamed);
-    # other configurations fall back to the VPU leaf.
-    mxu_leaf: bool = True
 
     # Score SAH splits by true surface area instead of the reference's
     # squared-diagonal approximation (cpu/src/bvh.c:43-46). A documented
-    # TPU-first divergence, ON by default (measured -3.5% full frame,
-    # -19% on the bounce-2 closest pass; tree SEMANTICS still match the
-    # reference's rules, only the heuristic-6 scoring differs, and the
-    # image is tracer-identical). Set False for strict reference tree
-    # parity. Implemented by both the C++ and NumPy builders.
+    # divergence, ON by default: tree SEMANTICS still match the reference's
+    # rules, only the heuristic-6 scoring differs, and the image is
+    # tracer-identical. Set False for strict reference tree parity.
+    # Implemented by both the C++ and NumPy builders.
     true_sah: bool = True
 
     # Trace shadow segments from the light toward the hit points (one
-    # shared packet origin -> primary-ray-grade coherence; the distance
-    # window maps exactly, see ops/shade.shade_hit). Applies only with
-    # fast_light (the any-hit tracer); the USE_BVH_FAST_LIGHT=0 parity
-    # fallback always traces forward.
+    # shared origin per light -> coherent shadow rays; the distance window
+    # maps exactly, see ops/shade.shade_hit). Applies only with fast_light
+    # (the any-hit tracer); the USE_BVH_FAST_LIGHT=0 parity fallback always
+    # traces forward.
     reverse_shadows: bool = True
 
-    # Triangles per leaf group row (power of two <= 8); None = largest
-    # that fits the 128-lane row (8).
-    leaf_size: Optional[int] = None
+    # Triangle slots per flattened leaf group (1, 2, 4 or 8).
+    leaf_size: int = 8
 
     # Pre-split oversized triangles before the BVH build (models/
     # presplit.py): 0 = off (strict reference build parity, and required
     # by the differentiable-training path, which owns the authored vertex
     # parameters); > 0 = split until every triangle AABB diagonal is at
     # most this fraction of the scene diagonal. Scene-sized wall/floor
-    # triangles otherwise overlap every subtree and divergent packets pay
-    # for it (measured on car_boxed; see BENCHMARKS.md).
+    # triangles otherwise overlap every subtree.
     presplit: float = 0.0
 
-    # HBM streaming of triangle/attribute rows ("auto" | "on" | "off"):
-    # scenes whose leaf rows exceed the VMEM budget keep them in HBM and
-    # the kernels fetch per leaf visit with lookahead prefetch. "auto"
-    # enables it when the resident estimate passes ~48 MB.
-    stream: str = "auto"
+    def __post_init__(self):
+        if self.leaf_size not in (1, 2, 4, 8):
+            raise ValueError(
+                f"leaf_size must be 1, 2, 4 or 8, got {self.leaf_size}"
+            )
 
     def resolution(self) -> Tuple[int, int]:
         return (self.width, self.height)

@@ -1,9 +1,8 @@
 """Pre-split of oversized triangles before the BVH build.
 
 car_boxed's room is a handful of wall/floor triangles the size of the
-whole scene; their AABBs overlap every subtree, so divergent bounce and
-shadow packets (which pay the UNION of their lanes' node visits, see
-docs/DESIGN.md §1) descend both children of almost every node they touch.
+whole scene; their AABBs overlap every subtree, so bounce and shadow rays
+descend both children of almost every node they touch.
 Subdividing those triangles into scene-fraction-sized pieces before the
 build restores spatial separation — the classic "early split clipping"
 technique (Ernst & Greiner 2007) in its simplest watertight form:
@@ -13,13 +12,13 @@ diagonal is at most `ratio` of the scene diagonal.
 Rendering semantics are unchanged: split pieces are coplanar with the
 source triangle, inherit its material and (derived) normals, and shared
 edges are bisected at identical midpoint vertices (deduplicated per edge)
-so the mesh stays watertight. Hit indices refer to the split list; the
-kernels resolve shading attributes in-kernel (HitFull), so nothing
-downstream observes the renumbering. The differentiable-training path
+so the mesh stays watertight. Hit indices refer to the split list and
+shading gathers from the same list, so nothing downstream observes the
+renumbering. The differentiable-training path
 keeps `presplit=0` — vertex parameters must stay the authored ones.
 
 The reference has no analog (its BVH simply degrades on car_boxed,
-cpu/src/bvh.c:78-267); this is a TPU-side tree-quality optimization, off
+cpu/src/bvh.c:78-267); this is a tree-quality optimization, off
 by default for strict build parity and enabled by RenderConfig.presplit.
 """
 

@@ -1,7 +1,7 @@
 """Procedural substitute scenes for the LFS-stripped reference assets.
 
 The reference mirrors only car_only/car_boxed geometry; dragon, sportscar and
-two_cars OBJs are stripped (`/root/reference/.MISSING_LARGE_BLOBS:1-3`), yet
+two_cars OBJs are stripped (the reference's `.MISSING_LARGE_BLOBS:1-3`), yet
 they define the benchmark configs (BASELINE.json: "dragon asset (high-poly
 BVH stress), 1080p"). This module regenerates *substitute* scenes with the
 same structural profile, deterministically from a seed:
@@ -26,7 +26,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from .scene import Scene, load_scene
+from .scene import Scene, load_scene, load_scene_npz
 
 
 def _surface_mesh(fn, nu: int, nv: int, close_u=True, close_v=True):
@@ -161,9 +161,8 @@ def _transform(verts: np.ndarray, rot_z: float, scale: float, offset) -> np.ndar
     return (verts * scale) @ rot.T + np.asarray(offset, np.float32)
 
 
-def two_cars_scene(car_asset_dir: str, seed: int = 1) -> Scene:
+def two_cars_scene(base: Scene, seed: int = 1) -> Scene:
     """Two transformed instances of the car_only geometry; 2 lights."""
-    base = load_scene(car_asset_dir)
     v1 = _transform(base.verts, rot_z=0.35, scale=1.0, offset=(-3.4, 2.2, 0.0))
     v2 = _transform(base.verts, rot_z=-0.5, scale=1.0, offset=(3.2, -1.2, 0.0))
     verts = np.concatenate([v1, v2], axis=0)
@@ -180,9 +179,8 @@ def two_cars_scene(car_asset_dir: str, seed: int = 1) -> Scene:
     )
 
 
-def sportscar_scene(car_asset_dir: str, seed: int = 1) -> Scene:
+def sportscar_scene(base: Scene, seed: int = 1) -> Scene:
     """car_only body on a glossy showroom floor; 4 lights."""
-    base = load_scene(car_asset_dir)
     floor_v = np.array(
         [[-14, -14, -0.01], [14, -14, -0.01], [14, 14, -0.01], [-14, 14, -0.01]],
         np.float32,
@@ -211,14 +209,25 @@ def sportscar_scene(car_asset_dir: str, seed: int = 1) -> Scene:
 
 
 def substitute_scene(name: str, asset_roots, seed: int = 1) -> Optional[Scene]:
-    """Build a substitute Scene for a stripped asset, or None if unknown."""
+    """Build a substitute Scene for a stripped asset, or None if unknown.
+
+    The car geometry comes from a car_only OBJ directory under
+    `asset_roots`, else from a car_only.npz snapshot there, else from the
+    snapshot bundled with the package's repository (assets/car_only.npz).
+    """
     import os
 
-    def find_car():
+    from ..config import DEFAULT_ASSET_ROOTS
+
+    def find_car() -> Scene:
         for root in asset_roots:
             p = os.path.join(root, "car_only")
             if os.path.isfile(os.path.join(p, "triangles.obj")):
-                return p
+                return load_scene(p)
+        for root in (*asset_roots, *DEFAULT_ASSET_ROOTS):
+            snap = os.path.join(root, "car_only.npz")
+            if os.path.isfile(snap):
+                return load_scene_npz(snap)
         raise FileNotFoundError("car_only assets required for substitutes")
 
     if name == "dragon":

@@ -3,7 +3,7 @@
 Replaces the reference's AoS `triangle_t` loader (cpu/src/triangle.c:74-123)
 with the GPU-style split layout taken to its conclusion: a material table plus
 per-triangle material indices (gpu/src/triangle.cu:91-116) and pure SoA float
-planes, which is what the TPU VPU wants.
+planes, which the batched tracers read lane by lane.
 
 Parsing matches the reference's exact OBJ/MTL subset:
   - OBJ: `v x y z` vertices, `f i j k` triangle faces (1-based), `usemtl name`

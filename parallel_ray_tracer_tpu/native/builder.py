@@ -2,9 +2,9 @@
 
 Auto-compiles the shared library on first use (g++ -O3; ~2s) and caches it
 next to the source; every entry point degrades gracefully to the NumPy
-implementations (ops/bvh.py + ops/bvh_flat.py + ops/pallas_trace.pack_bvh,
-models/scene.py) when no toolchain is available, so the Python path remains
-the portable fallback and the parity oracle.
+implementations (ops/bvh.py + ops/bvh_flat.py, models/scene.py) when no
+toolchain is available, so the Python path remains the portable fallback and
+the parity oracle.
 """
 
 from __future__ import annotations
@@ -67,16 +67,13 @@ def get_lib() -> Optional[ctypes.CDLL]:
             ctypes.c_int, ctypes.c_int, ctypes.c_ulonglong, ctypes.c_int,
             ctypes.c_int,
         ]
-        for name in ("rt_bvh_n_flat_nodes", "rt_bvh_n_slots",
-                     "rt_bvh_n_inner", "rt_bvh_n_groups"):
+        for name in ("rt_bvh_n_flat_nodes", "rt_bvh_n_slots"):
             getattr(lib, name).restype = ctypes.c_longlong
             getattr(lib, name).argtypes = [ctypes.c_void_p]
         lib.rt_bvh_depth.restype = ctypes.c_int
         lib.rt_bvh_depth.argtypes = [ctypes.c_void_p]
         lib.rt_bvh_get_flat.restype = None
         lib.rt_bvh_get_flat.argtypes = [ctypes.c_void_p, f32p, f32p, i32p, i32p, i32p]
-        lib.rt_bvh_get_packed.restype = None
-        lib.rt_bvh_get_packed.argtypes = [ctypes.c_void_p, f32p, i32p, f32p]
         lib.rt_bvh_stats.restype = None
         lib.rt_bvh_stats.argtypes = [ctypes.c_void_p, f64p]
         lib.rt_bvh_free.restype = None
@@ -113,15 +110,14 @@ def build_bvh_native(
     leaf_size: int = 8,
     true_sah: bool = False,
 ):
-    """Build + flatten + pack in C++. Returns (FlatBVH, PackedBVH, stats)
-    with the same array semantics as the NumPy path, or None if the native
-    library is unavailable.
+    """Build + flatten in C++. Returns (FlatBVH, stats) with the same array
+    semantics as the NumPy path, or None if the native library is
+    unavailable.
     """
     lib = get_lib()
     if lib is None:
         return None
     from ..ops.bvh_flat import FlatBVH
-    from ..ops.pallas_trace import LANES, PackedBVH
 
     tv = np.ascontiguousarray(tri_verts, np.float32).reshape(-1, 9)
     T = tv.shape[0]
@@ -134,8 +130,6 @@ def build_bvh_native(
     try:
         n_nodes = lib.rt_bvh_n_flat_nodes(h)
         n_slots = lib.rt_bvh_n_slots(h)
-        ni = lib.rt_bvh_n_inner(h)
-        ng = lib.rt_bvh_n_groups(h)
         depth = lib.rt_bvh_depth(h)
 
         node_min = np.empty((n_nodes, 3), np.float32)
@@ -144,13 +138,6 @@ def build_bvh_native(
         a = np.empty(n_nodes, np.int32)
         slot_map = np.empty(n_slots, np.int32)
         lib.rt_bvh_get_flat(h, node_min, node_max, count, a, slot_map)
-
-        cbox = np.empty((ni, 16), np.float32)
-        cmeta = np.empty((ni, 8), np.int32)
-        # +1: trailing all-zero NULL group row (pack_bvh layout parity —
-        # pads partial leaf pops in the combined-schedule kernels).
-        tri = np.zeros((ng + 1, LANES), np.float32)
-        lib.rt_bvh_get_packed(h, cbox, cmeta, tri[:ng])
 
         stats_raw = np.empty(5, np.float64)
         lib.rt_bvh_stats(h, stats_raw)
@@ -169,8 +156,7 @@ def build_bvh_native(
         node_min=node_min, node_max=node_max, count=count, a=a,
         slot_map=slot_map, leaf_size=leaf_size, depth=depth,
     )
-    packed = PackedBVH(cbox=cbox, cmeta=cmeta, tri=tri, leaf_size=leaf_size)
-    return flat, packed, stats
+    return flat, stats
 
 
 def load_scene_native(asset_dir: str):

@@ -1,4 +1,4 @@
-// Native host runtime: OBJ/MTL/light parsing + BVH build/flatten/pack.
+// Native host runtime: OBJ/MTL/light parsing + BVH build/flatten.
 //
 // C++ counterpart of the reference's host-side C layer (cpu/src/triangle.c,
 // cpu/src/bvh.c, duplicated at gpu/src/{triangle,bvh}.cu): the scene loader
@@ -6,9 +6,8 @@
 // within the next 5 lines, <=128 materials; lights as 'x y z r g b' rows),
 // and the builder implements the same 7 split heuristics, leaf rules, and
 // node semantics as the Python reference builder (ops/bvh.py), then emits
-// the flattened/packed device layouts directly (ops/bvh_flat.py,
-// ops/pallas_trace.py): fixed-L leaf groups, children-packed inner rows,
-// triangle group rows with precomputed v0/e1/e2/n.
+// the flattened device layout directly (ops/bvh_flat.py): fixed-L leaf
+// groups, children adjacent at a/a+1, dead-node chains collapsed.
 //
 // Exposed via a C ABI consumed with ctypes (native/builder.py); the NumPy
 // path remains as fallback and as the parity oracle in tests.
@@ -26,9 +25,6 @@
 #include <vector>
 
 namespace {
-
-constexpr int kLanes = 128;
-constexpr int kTriStride = 12;
 
 struct Vec3 {
   float x = 0, y = 0, z = 0;
@@ -357,7 +353,7 @@ struct Builder {
 };
 
 // ---------------------------------------------------------------------------
-// Flatten (ops/bvh_flat.py parity) + pack (ops/pallas_trace.py parity)
+// Flatten (ops/bvh_flat.py parity)
 // ---------------------------------------------------------------------------
 
 struct Flattened {
@@ -462,82 +458,9 @@ struct Flattener {
   }
 };
 
-struct Packed {
-  std::vector<float> cbox;    // (Ni, 16)
-  std::vector<int32_t> cmeta; // (Ni, 8)
-  std::vector<float> tri;     // (G, 128)
-  int64_t n_inner = 0, n_groups = 0;
-};
-
-static void pack(const Flattened &f, const float *tv, Packed *p) {
-  int L = f.leaf_size;
-  int64_t N = (int64_t)f.count.size();
-  std::vector<int64_t> remap(N, -1);
-  int64_t ni = 0;
-  for (int64_t i = 0; i < N; ++i)
-    if (f.count[i] == 0) remap[i] = ni++;
-
-  if (ni == 0) {
-    // Root is a leaf: synthetic inner with BOTH children pointing at it.
-    // (An inverted AABB is not a never-hit sentinel under the ordered slab
-    // test, so the second child duplicates the leaf — idempotent.)
-    p->n_inner = 1;
-    p->cbox.assign(16, 0.0f);
-    p->cbox[0] = p->cbox[6] = f.fmin[0].x;
-    p->cbox[1] = p->cbox[7] = f.fmin[0].y;
-    p->cbox[2] = p->cbox[8] = f.fmin[0].z;
-    p->cbox[3] = p->cbox[9] = f.fmax[0].x;
-    p->cbox[4] = p->cbox[10] = f.fmax[0].y;
-    p->cbox[5] = p->cbox[11] = f.fmax[0].z;
-    p->cmeta.assign(8, 0);
-    p->cmeta[0] = p->cmeta[1] = -(f.a[0] / L) - 1;
-  } else {
-    p->n_inner = ni;
-    p->cbox.assign(ni * 16, 0.0f);
-    p->cmeta.assign(ni * 8, 0);
-    for (int64_t i = 0; i < N; ++i) {
-      if (f.count[i] != 0) continue;
-      int64_t r = remap[i];
-      int c = f.a[i];
-      float *row = p->cbox.data() + r * 16;
-      row[0] = f.fmin[c].x;  row[1] = f.fmin[c].y;  row[2] = f.fmin[c].z;
-      row[3] = f.fmax[c].x;  row[4] = f.fmax[c].y;  row[5] = f.fmax[c].z;
-      row[6] = f.fmin[c + 1].x; row[7] = f.fmin[c + 1].y; row[8] = f.fmin[c + 1].z;
-      row[9] = f.fmax[c + 1].x; row[10] = f.fmax[c + 1].y; row[11] = f.fmax[c + 1].z;
-      int32_t *m = p->cmeta.data() + r * 8;
-      for (int k = 0; k < 2; ++k) {
-        int ch = c + k;
-        m[k] = f.count[ch] > 0 ? -(f.a[ch] / L) - 1 : (int32_t)remap[ch];
-      }
-    }
-  }
-
-  int64_t S = (int64_t)f.slot_map.size();
-  int64_t G = S / L;
-  p->n_groups = G;
-  p->tri.assign(G * kLanes, 0.0f);
-  for (int64_t s = 0; s < S; ++s) {
-    int32_t ti = f.slot_map[s];
-    if (ti < 0) continue;
-    const float *src = tv + (int64_t)ti * 9;
-    float v0[3] = {src[0], src[1], src[2]};
-    float e1[3] = {src[3] - v0[0], src[4] - v0[1], src[5] - v0[2]};
-    float e2[3] = {src[6] - v0[0], src[7] - v0[1], src[8] - v0[2]};
-    float nx = e1[1] * e2[2] - e1[2] * e2[1];
-    float ny = e1[2] * e2[0] - e1[0] * e2[2];
-    float nz = e1[0] * e2[1] - e1[1] * e2[0];
-    float *dst = p->tri.data() + (s / L) * kLanes + (s % L) * kTriStride;
-    dst[0] = v0[0]; dst[1] = v0[1]; dst[2] = v0[2];
-    dst[3] = e1[0]; dst[4] = e1[1]; dst[5] = e1[2];
-    dst[6] = e2[0]; dst[7] = e2[1]; dst[8] = e2[2];
-    dst[9] = nx;    dst[10] = ny;   dst[11] = nz;
-  }
-}
-
 struct Handle {
   BuildTree tree;
   Flattened flat;
-  Packed packed;
 };
 
 // ---------------------------------------------------------------------------
@@ -667,7 +590,6 @@ void *rt_bvh_build(const float *tv, long long T, int heuristic, int max_depth,
   Flattener fl(h->tree, b.bb_min, b.bb_max, leaf_size);
   fl.run();
   h->flat = std::move(fl.f);
-  pack(h->flat, tv, &h->packed);
   return h;
 }
 
@@ -676,12 +598,6 @@ long long rt_bvh_n_flat_nodes(void *hp) {
 }
 long long rt_bvh_n_slots(void *hp) {
   return (long long)static_cast<Handle *>(hp)->flat.slot_map.size();
-}
-long long rt_bvh_n_inner(void *hp) {
-  return static_cast<Handle *>(hp)->packed.n_inner;
-}
-long long rt_bvh_n_groups(void *hp) {
-  return static_cast<Handle *>(hp)->packed.n_groups;
 }
 int rt_bvh_depth(void *hp) { return static_cast<Handle *>(hp)->flat.depth; }
 
@@ -701,15 +617,6 @@ void rt_bvh_get_flat(void *hp, float *node_min, float *node_max,
   std::memcpy(a, h->flat.a.data(), N * sizeof(int32_t));
   std::memcpy(slot_map, h->flat.slot_map.data(),
               h->flat.slot_map.size() * sizeof(int32_t));
-}
-
-void rt_bvh_get_packed(void *hp, float *cbox, int32_t *cmeta, float *tri) {
-  auto *h = static_cast<Handle *>(hp);
-  std::memcpy(cbox, h->packed.cbox.data(),
-              h->packed.cbox.size() * sizeof(float));
-  std::memcpy(cmeta, h->packed.cmeta.data(),
-              h->packed.cmeta.size() * sizeof(int32_t));
-  std::memcpy(tri, h->packed.tri.data(), h->packed.tri.size() * sizeof(float));
 }
 
 void rt_bvh_stats(void *hp, double *out) {

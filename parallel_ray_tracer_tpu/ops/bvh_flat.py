@@ -1,8 +1,8 @@
 """Device-flattened BVH: fixed-size leaf groups, SoA planes, bf16 option.
 
 The host builder (ops/bvh.py) reproduces the reference tree semantics
-(cpu/src/bvh.c:78-388). This module rewrites that tree into the shape the TPU
-traversal kernels want:
+(cpu/src/bvh.c:78-388). This module rewrites that tree into the shape the
+device traversals want:
 
   - **Fixed leaf groups.** Reference leaves hold a variable triangle count
     (`tr_len`, cpu/include/bvh.h:17). Variable trip counts are poison under
@@ -34,6 +34,7 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Optional, Tuple
 
+import jax.numpy as jnp
 import numpy as np
 
 from .bvh import BVH
@@ -192,8 +193,6 @@ def compress_bf16(flat: FlatBVH) -> Tuple[np.ndarray, np.ndarray]:
     box a superset of its f32 original, so traversal stays exact (only
     slightly less effective at culling).
     """
-    import ml_dtypes
-
     def trunc_bits(x: np.ndarray) -> np.ndarray:
         """f32 -> bf16 bit pattern by mantissa truncation (round toward zero
         in magnitude for positives, toward zero for negatives too)."""
@@ -216,8 +215,8 @@ def compress_bf16(flat: FlatBVH) -> Tuple[np.ndarray, np.ndarray]:
     # Truncation only decreases positive values; push those one ulp up.
     hi_bits = np.where(as_f32(hi_bits) < flat.node_max, bump(hi_bits), hi_bits)
 
-    lo = as_f32(lo_bits).astype(ml_dtypes.bfloat16)
-    hi = as_f32(hi_bits).astype(ml_dtypes.bfloat16)
+    lo = as_f32(lo_bits).astype(jnp.bfloat16)
+    hi = as_f32(hi_bits).astype(jnp.bfloat16)
     assert (lo.astype(np.float32) <= flat.node_min).all()
     assert (hi.astype(np.float32) >= flat.node_max).all()
     return lo, hi

@@ -11,7 +11,7 @@ The decomposition:
 
 Traversal only *selects* which triangle each ray hits; for fixed topology
 the hit distance is the smooth Möller–Trumbore t(v0, v1, v2, o, d). So the
-custom VJP runs the fast (Pallas) tracer for the primal topology and routes
+custom VJP runs the fast (GPU kernel) tracer for the primal topology and routes
 the cotangent of t through an analytic recompute on the winning triangle —
 `diff_closest` below. Hit topology changes only on a measure-zero set
 (silhouettes), where the true derivative has a Dirac edge term this
@@ -27,14 +27,11 @@ edges and drive blockers in and out of the light path.
 
 from __future__ import annotations
 
-import functools
-from typing import Callable, Optional
-
 import jax
 import jax.numpy as jnp
 
 from .intersect import T_MAX, moller_trumbore_t
-from .shade import ClosestFn, mask_dead_rays, trace_rays, _gather_vec
+from .shade import ClosestFn, trace_rays, _gather_vec
 from .trace_brute import Hit
 from .vecmath import Vec3
 
@@ -85,108 +82,33 @@ def _recompute_t(ds, o: Vec3, d: Vec3, hit: Hit) -> jax.Array:
     return _recompute_tuv(ds, o, d, hit)[0]
 
 
-@jax.custom_vjp
-def _table_resolved(table, idx, primal):
-    """Value: the kernel-resolved per-lane attributes (primal). Gradient
-    w.r.t. `table`: the gather's transpose (scatter-add of the cotangent at
-    idx) — WITHOUT ever executing the forward gather. This is the
-    attribute-recompute trick: the Pallas HitFull kernel already resolved
-    table[idx] with masked selects at leaf time; only the backward needs
-    the indexed structure."""
-    return primal
-
-
-def _table_resolved_fwd(table, idx, primal):
-    return primal, (idx, jnp.zeros_like(table))
-
-
-def _table_resolved_bwd(res, g):
-    idx, zeros = res
-    safe = jnp.clip(idx, 0, zeros.shape[0] - 1)
-    ct = zeros.at[safe].add(jnp.where(idx >= 0, g, 0.0))
-    return ct, None, jnp.zeros_like(g)
-
-
-_table_resolved.defvjp(_table_resolved_fwd, _table_resolved_bwd)
-
-
-def _resolve_vec(table: Vec3, idx, primal: Vec3) -> Vec3:
-    return Vec3(
-        _table_resolved(table.x, idx, primal.x),
-        _table_resolved(table.y, idx, primal.y),
-        _table_resolved(table.z, idx, primal.z),
-    )
-
-
 def make_diff_closest(ds, closest_fn: ClosestFn) -> ClosestFn:
     """Wrap a fast tracer into a differentiable closest-hit.
 
     This realizes the custom VJP of the traversal+intersection hot loop
     described in the module docstring, in its stop-gradient normal form:
 
-      - primal: the fast tracer (Pallas kernel / packet while_loop) runs with
+      - primal: the fast tracer (GPU kernel / packet while_loop) runs with
         every output under stop_gradient — reverse-mode AD never attempts to
         transpose the traversal (while_loop/pallas_call have no transpose);
       - backward: the cotangent of t flows through the analytic
         Möller–Trumbore recompute on the (frozen) winning triangle, reaching
         ds.v0/v1/v2 via the gather's scatter-add transpose — and through
-        build_device_scene, the vertex buffer.
+        build_device_scene, the vertex buffer. Normals and materials reach
+        their tables through the shading gathers (shade.surface_attrs).
 
     The two formulations (explicit jax.custom_vjp vs stopped-primal +
     differentiable recompute) define the same VJP; this form also lets the
     tracer close over scene arrays that are themselves being differentiated
     (their cotangent contribution is exactly the recompute path).
-
-    HitFull tracers (the production Pallas attribute kernels) keep their
-    in-kernel-resolved attributes on the fast path: materials get their
-    gradients through `_table_resolved` (scatter-add backward, NO forward
-    gather — XLA's per-lane gathers are pathologically slow on TPU), and
-    the shading normal is recomputed differentiably from the same vertex
-    gathers the t-recompute already needs (XLA shares them). Sphere-lane
-    normals keep the primal value (their t still differentiates through
-    the quadratic recompute).
     """
 
     def closest(o: Vec3, d: Vec3):
         o_s = jax.tree.map(jax.lax.stop_gradient, o)
         d_s = jax.tree.map(jax.lax.stop_gradient, d)
-        hit = closest_fn(o_s, d_s)
-        if not hasattr(hit, "kd"):
-            hit = _stop_hit(hit)
-            t = _recompute_t(ds, o, d, hit)
-            return Hit(t=t, idx=hit.idx, norm_dir=hit.norm_dir)
-
-        from .trace_brute import HitFull
-
-        stop = jax.lax.stop_gradient
-        hit = jax.tree.map(stop, hit)
+        hit = _stop_hit(closest_fn(o_s, d_s))
         t = _recompute_t(ds, o, d, hit)
-        # Differentiable raw normal from the winning triangle's vertices
-        # (the recompute's gathers; CSE merges them with _recompute_t's).
-        T = ds.v0.x.shape[0]
-        safe = jnp.clip(hit.idx, 0, T - 1)
-        v0 = _gather_vec(ds.v0, safe)
-        v1 = _gather_vec(ds.v1, safe)
-        v2 = _gather_vec(ds.v2, safe)
-        n_tri = (v1 - v0).cross(v2 - v0)
-        is_tri = (hit.idx >= 0) & (hit.idx < T)
-        n = n_tri.where(is_tri, hit.n)
-        # Material index per lane: triangle lanes via mat_idx, sphere lanes
-        # via sph_mat (both feed the SAME kd/ks/kr tables); miss lanes -1
-        # (masked out of the scatter backward).
-        mi = jnp.where(is_tri, ds.mat_idx[safe], -1)
-        S = ds.sph_r.shape[0]
-        if S:
-            is_sph = hit.idx >= T
-            sidx = jnp.clip(hit.idx - T, 0, S - 1)
-            mi = jnp.where(is_sph, ds.sph_mat[sidx], mi)
-        mi = stop(mi)
-        return HitFull(
-            t=t, idx=hit.idx, norm_dir=hit.norm_dir, n=n,
-            kd=_resolve_vec(ds.kd, mi, hit.kd),
-            ks=_resolve_vec(ds.ks, mi, hit.ks),
-            kr=_resolve_vec(ds.kr, mi, hit.kr),
-        )
+        return Hit(t=t, idx=hit.idx, norm_dir=hit.norm_dir)
 
     return closest
 
@@ -257,23 +179,18 @@ def trace_rays_diff(
     reverse_shadows: bool = False,
 ) -> Vec3:
     """Differentiable bounce loop: trace_rays with the custom-VJP closest hit
-    and the chosen visibility model. closest_fn / occluded_fn may be
-    per-bounce sequences (see shade.trace_rays). reverse_shadows threads
-    the production light-origin shadow schedule through the HARD
+    and the chosen visibility model. reverse_shadows threads the
+    light-origin shadow schedule through the HARD
     visibility model only (binary occlusion of a segment is symmetric,
     so values and gradients are unaffected); the SOFT model's depth
     factor sigmoid(beta*(1 - t/dist)) is NOT symmetric under reversal
     (it fades blockers near the segment's far end), so soft_shadows
     ignores reverse_shadows and always traces hit -> light."""
-    cfs = (list(closest_fn) if isinstance(closest_fn, (list, tuple))
-           else [closest_fn])
-    ofs = (list(occluded_fn) if isinstance(occluded_fn, (list, tuple))
-           else [occluded_fn])
-    diff_closest = [make_diff_closest(ds, c) for c in cfs]
+    diff_closest = make_diff_closest(ds, closest_fn)
     if soft_shadows:
-        occ = [make_soft_occluded(ds, c, beta=beta) for c in cfs]
+        occ = make_soft_occluded(ds, closest_fn, beta=beta)
         reverse_shadows = False
     else:
-        occ = [make_hard_occluded_diff(f) for f in ofs]
+        occ = make_hard_occluded_diff(occluded_fn)
     return trace_rays(ds, diff_closest, occ, o, d, bounces,
                       reverse_shadows=reverse_shadows)

@@ -19,11 +19,13 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
 from .vecmath import Vec3
 
 EPSILON = 1e-3
-T_MAX = jnp.float32(3.4028235e38)  # FLT_MAX, the reference miss sentinel
+# NumPy scalars, so Pallas kernels see them as literals, not captured arrays.
+T_MAX = np.float32(3.4028235e38)  # FLT_MAX, the reference miss sentinel
 
 
 class TriHit(NamedTuple):
@@ -44,7 +46,7 @@ def moller_trumbore(o: Vec3, d: Vec3, v0: Vec3, v1: Vec3, v2: Vec3) -> TriHit:
     # The miss test gates the result, so a safe denominator changes nothing
     # in the forward pass — but it keeps reverse-mode AD finite: 1/0 = inf
     # would turn the (zero) cotangents of miss lanes into NaN (inf * 0).
-    det_safe = jnp.where(jnp.abs(det) >= EPSILON, det, jnp.float32(1.0))
+    det_safe = jnp.where(jnp.abs(det) >= EPSILON, det, np.float32(1.0))
     invdet = 1.0 / det_safe
     ao = o - v0
     dao = ao.cross(d)
@@ -78,7 +80,7 @@ def moller_trumbore_t(o: Vec3, d: Vec3, v0: Vec3, v1: Vec3, v2: Vec3):
     e2 = v2 - v0
     n = e1.cross(e2)
     det = -(d.dot(n))
-    det_safe = jnp.where(jnp.abs(det) >= 1e-12, det, jnp.float32(1.0))
+    det_safe = jnp.where(jnp.abs(det) >= 1e-12, det, np.float32(1.0))
     invdet = 1.0 / det_safe
     ao = o - v0
     dao = ao.cross(d)
@@ -100,10 +102,10 @@ def clip_inv_dir(d: Vec3) -> Vec3:
     divides per node AND every NaN path: with finite +/-1e30, 0 * 1e30 == 0,
     so an on-slab axis-parallel ray yields an unconstrained axis — a strictly
     conservative (never-cull-a-true-hit) superset of the C semantics, and
-    plain min/max suffice (cheaper on the VPU than NaN-aware fmin/fmax).
+    plain min/max suffice (cheaper than NaN-aware fmin/fmax).
     """
-    one = jnp.float32(1.0)
-    lim = jnp.float32(INV_DIR_MAX)
+    one = np.float32(1.0)
+    lim = np.float32(INV_DIR_MAX)
     return Vec3(
         jnp.clip(one / d.x, -lim, lim),
         jnp.clip(one / d.y, -lim, lim),
@@ -153,7 +155,7 @@ def ray_sphere(o: Vec3, d: Vec3, center: Vec3, radius) -> SphereHit:
     # masked (d == 0) lanes, where the zero cotangent would otherwise meet
     # an infinite partial (0 * inf = NaN).
     sq = jnp.sqrt(jnp.maximum(disc, 1e-30))
-    a_safe = jnp.where(a > 1e-20, a, jnp.float32(1.0))
+    a_safe = jnp.where(a > 1e-20, a, np.float32(1.0))
     t0 = (-half_b - sq) / a_safe
     t1 = (-half_b + sq) / a_safe
     t = jnp.where(t0 > EPSILON, t0, t1)

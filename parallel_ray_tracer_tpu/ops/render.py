@@ -1,6 +1,6 @@
 """render(): pure function scene -> image, plus the ray generator.
 
-The TPU analog of the reference's per-thread/per-CUDA-thread pixel loop
+The batched form of the reference's per-thread/per-CUDA-thread pixel loop
 (cpu/src/main.c:228-261, gpu/src/gpu.cu:60-95): the whole image is one batched
 computation. Pixel (x, y) gets the unnormalized direction
 dir00 + x*inc_x + y*inc_y from the camera basis; colors are clamped to [0,1]
@@ -172,244 +172,115 @@ def generate_rays_tiled(cam_arrays, width, height, tr, tc, y_offset=0):
     )
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "width", "height", "bounces", "leaf_size", "stack_depth",
-        "tile_rows", "tile_cols", "fast_light", "reverse_shadows",
-    ),
-)
-def _render_bvh_jax(
+VARIANTS = ("gpu", "jax", "bruteforce")
+
+
+def make_tracers(
+    variant: str,
     ds,
     bvh,
-    cam_arrays,
-    width: int,
-    height: int,
-    bounces: int,
     leaf_size: int,
-    stack_depth: int,
-    tile_rows: int,
-    tile_cols: int,
-    fast_light: bool = True,
-    y_offset=0,
-    reverse_shadows: bool = True,
-):
-    from . import trace_bvh
-
-    o, d = generate_rays_tiled(
-        cam_arrays, width, height, tile_rows, tile_cols, y_offset
-    )
-    closest_fn, occluded_fn = trace_bvh.make_tracer(
-        bvh, ds, leaf_size, stack_depth, packet=tile_rows * tile_cols
-    )
-    if not fast_light:
-        # Keep the USE_BVH_FAST_LIGHT=0 parity mode literally
-        # reference-shaped: forward shadow rays.
-        occluded_fn = occluded_from_closest(closest_fn)
-    col = trace_rays(ds, closest_fn, occluded_fn, o, d, bounces,
-                     reverse_shadows=fast_light and reverse_shadows)
-    col = col.clamp(0.0, 1.0)
-    flat = jnp.stack([col.x, col.y, col.z], axis=-1)
-    return tiles_to_image(flat, width, height, tile_rows, tile_cols)
-
-
-def render_bvh_jax(
-    ds,
-    bvh,
-    cam: Camera,
-    width: int,
-    height: int,
-    bounces: int = 4,
-    leaf_size: int = 4,
-    stack_depth: int = 64,
-    tile_rows: int = 32,
-    tile_cols: int = 32,
-    fast_light: bool = True,
-    reverse_shadows: bool = True,
-):
-    """Packet-traversal render, pure JAX (lax.while_loop) variant."""
-    cam_arrays = tuple(jnp.asarray(a) for a in ray_basis(cam, width, height))
-    return _render_bvh_jax(
-        ds, bvh, cam_arrays, width, height, bounces,
-        leaf_size, stack_depth, tile_rows, tile_cols, fast_light,
-        reverse_shadows=reverse_shadows,
-    )
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "width", "height", "bounces", "leaf_size", "tile_rows", "tile_cols",
-        "interpret", "fast_light", "stack_depth", "compressed", "dual",
-        "stream", "npop", "npop0", "reverse_shadows", "adaptive",
-    ),
-)
-def _render_bvh_pallas(
-    ds,
-    packed_dev,
-    cam_arrays,
-    width: int,
-    height: int,
-    bounces: int,
-    leaf_size: int,
-    tile_rows: int,
-    tile_cols: int,
-    interpret: bool,
-    fast_light: bool = True,
-    stack_depth: int = 96,
-    y_offset=0,
-    compressed: bool = False,
-    dual: bool = True,
-    stream: bool = False,
-    npop: int = 2,
-    npop0: int = 0,
-    reverse_shadows: bool = True,
-    adaptive: bool = False,
-):
-    from . import pallas_trace
-
-    o, d = generate_rays_tiled(
-        cam_arrays, width, height, tile_rows, tile_cols, y_offset
-    )
-    closest_fn, occluded_fn = pallas_trace.make_tracer(
-        packed_dev, leaf_size, interpret=interpret, ds=ds,
-        stack_depth=stack_depth, compressed=compressed, dual=dual,
-        stream=stream, npop=npop, adaptive=adaptive,
-    )
-    if npop0 and npop0 != npop:
-        # Coherent primary bounce at its own (narrower) pop width.
-        c0, o0 = pallas_trace.make_tracer(
-            packed_dev, leaf_size, interpret=interpret, ds=ds,
-            stack_depth=stack_depth, compressed=compressed, dual=dual,
-            stream=stream, npop=npop0, adaptive=adaptive,
-        )
-        closest_fn = [c0, closest_fn]
-        occluded_fn = [o0, occluded_fn]
-    if not fast_light:
-        occluded_fn = (
-            [occluded_from_closest(c) for c in closest_fn]
-            if isinstance(closest_fn, list)
-            else occluded_from_closest(closest_fn)
-        )
-    col = trace_rays(ds, closest_fn, occluded_fn, o, d, bounces,
-                     reverse_shadows=fast_light and reverse_shadows)
-    col = col.clamp(0.0, 1.0)
-    flat = jnp.stack([col.x, col.y, col.z], axis=-1)
-    return tiles_to_image(flat, width, height, tile_rows, tile_cols)
-
-
-def _render_bvh_fused(
-    ds,
-    packed_dev,
-    cam_arrays,
-    width: int,
-    height: int,
-    bounces: int,
-    leaf_size: int,
-    tile_rows: int,
-    tile_cols: int,
-    interpret: bool,
-    stack_depth: int = 96,
-    y_offset=0,
-    compressed: bool = False,
-    npop: int = 2,
-    npop0: int = 0,
-    reverse_shadows: bool = True,
-    adaptive: bool = False,
-):
-    from . import pallas_trace
-
-    o, d = generate_rays_tiled(
-        cam_arrays, width, height, tile_rows, tile_cols, y_offset
-    )
-    rows = o.x.shape[0] // pallas_trace.LANES
-    o2 = o.reshape(rows, pallas_trace.LANES)
-    d2 = d.reshape(rows, pallas_trace.LANES)
-    lamb = pallas_trace.pack_lights(ds)
-    col = pallas_trace.frame_tiles(
-        *packed_dev[:4], lamb, o2, d2, bounces=bounces, leaf_size=leaf_size,
-        interpret=interpret, stack_depth=stack_depth, compressed=compressed,
-        cmat=packed_dev[4] if len(packed_dev) >= 5 else None, npop=npop,
-        npop0=npop0, reverse_shadows=reverse_shadows, adaptive=adaptive,
-        sph=pallas_trace.pack_spheres(ds),
-    )
-    col = col.reshape(o.x.shape[0]).clamp(0.0, 1.0)
-    flat = jnp.stack([col.x, col.y, col.z], axis=-1)
-    return tiles_to_image(flat, width, height, tile_rows, tile_cols)
-
-
-def render_bvh_fused(
-    ds,
-    packed_dev,
-    cam: Camera,
-    width: int,
-    height: int,
-    bounces: int = 4,
-    leaf_size: int = 8,
-    tile_rows: int = 32,
-    tile_cols: int = 32,
-    interpret: bool = False,
-    stack_depth: int = 96,
-    compressed: bool = False,
-    npop: int = 2,
-    npop0: int = 0,
-    reverse_shadows: bool = True,
-    adaptive: bool = False,
-):
-    """Whole-frame fused-kernel render (pallas_trace.frame_tiles): the
-    entire bounce loop in ONE kernel launch per packet — no inter-pass
-    barriers or XLA glue. Requires bvh_width >= 4; spheres ride a dense
-    in-kernel pass after each BVH traversal (pallas_trace.pack_spheres);
-    image matches render_bvh_pallas (tests/test_fused.py)."""
-    from .pallas_trace import PACKET
-
-    assert tile_rows * tile_cols == PACKET, (tile_rows, tile_cols)
-    cam_arrays = tuple(
-        jnp.asarray(a) for a in ray_basis(cam, width, height)
-    )
-    return _render_bvh_fused(
-        ds, packed_dev, cam_arrays, width, height, bounces, leaf_size,
-        tile_rows, tile_cols, interpret, stack_depth,
-        compressed=compressed, npop=npop, npop0=npop0,
-        reverse_shadows=reverse_shadows, adaptive=adaptive,
-    )
-
-
-def render_bvh_pallas(
-    ds,
-    packed_dev,
-    cam: Camera,
-    width: int,
-    height: int,
-    bounces: int = 4,
-    leaf_size: int = 8,
-    tile_rows: int = 32,
-    tile_cols: int = 32,
+    depth: Optional[int],
+    packet: int,
     interpret: bool = False,
     fast_light: bool = True,
-    stack_depth: int = 96,
-    compressed: bool = False,
-    dual: bool = True,
-    stream: bool = False,
-    npop: int = 2,
-    npop0: int = 0,
-    reverse_shadows: bool = True,
-    adaptive: bool = False,
 ):
-    """Packet-traversal render with the Pallas TPU kernels (production path).
+    """The (closest, occluded) pair of one tracer variant.
 
-    packed_dev: (cbox, cmeta, tri) device arrays from pallas_trace.pack_bvh.
-    Pixel tiles must hold exactly 1024 rays (one (8,128) packet per grid
-    step); (32, 32) blocks are the most ray-coherent choice.
+    "gpu": per-ray Pallas kernels (ops/gpu_trace.py), the served path;
+    "jax": the vmapped packet while_loop (ops/trace_bvh.py), its plain-XLA
+    reference; "bruteforce": every ray against every triangle, the oracle.
+    `depth` is the tree depth; `packet` the "jax" packet size. With
+    fast_light off, shadows come from the closest-hit traversal
+    (USE_BVH_FAST_LIGHT=0).
     """
-    from .pallas_trace import PACKET
+    if variant in ("gpu", "jax") and (bvh is None or depth is None):
+        # The stacks are sized from depth; a wrong one overflows them.
+        raise ValueError(f"variant {variant!r} needs the DeviceBVH and its "
+                         "tree depth")
+    if variant == "gpu":
+        from . import gpu_trace
 
-    assert tile_rows * tile_cols == PACKET, (tile_rows, tile_cols)
+        closest_fn, occluded_fn = gpu_trace.make_tracer(
+            bvh, ds, leaf_size, depth, interpret=interpret
+        )
+    elif variant == "jax":
+        from . import trace_bvh
+
+        closest_fn, occluded_fn = trace_bvh.make_tracer(
+            bvh, ds, leaf_size, depth, packet=packet
+        )
+    elif variant == "bruteforce":
+        closest_fn, occluded_fn = trace_brute.make_tracer(ds)
+    else:
+        raise ValueError(f"unknown variant {variant!r}; expected {VARIANTS}")
+    if not fast_light:
+        occluded_fn = occluded_from_closest(closest_fn)
+    return closest_fn, occluded_fn
+
+
+@functools.partial(
+    jax.jit,
+    static_argnames=(
+        "width", "height", "bounces", "variant", "leaf_size", "depth",
+        "tile_rows", "tile_cols", "fast_light", "reverse_shadows",
+        "interpret",
+    ),
+)
+def _render_bvh(
+    ds,
+    bvh,
+    cam_arrays,
+    width: int,
+    height: int,
+    bounces: int,
+    variant: str,
+    leaf_size: int,
+    depth: int,
+    tile_rows: int,
+    tile_cols: int,
+    fast_light: bool = True,
+    y_offset=0,
+    reverse_shadows: bool = True,
+    interpret: bool = False,
+):
+    o, d = generate_rays_tiled(
+        cam_arrays, width, height, tile_rows, tile_cols, y_offset
+    )
+    closest_fn, occluded_fn = make_tracers(
+        variant, ds, bvh, leaf_size, depth, tile_rows * tile_cols,
+        interpret=interpret, fast_light=fast_light,
+    )
+    # The USE_BVH_FAST_LIGHT=0 parity mode stays literally reference-shaped:
+    # forward shadow rays.
+    col = trace_rays(ds, closest_fn, occluded_fn, o, d, bounces,
+                     reverse_shadows=fast_light and reverse_shadows)
+    col = col.clamp(0.0, 1.0)
+    flat = jnp.stack([col.x, col.y, col.z], axis=-1)
+    return tiles_to_image(flat, width, height, tile_rows, tile_cols)
+
+
+def render_bvh(
+    ds,
+    bvh,
+    cam: Camera,
+    width: int,
+    height: int,
+    variant: str = "gpu",
+    bounces: int = 4,
+    leaf_size: int = 8,
+    depth: Optional[int] = None,
+    tile_rows: int = 32,
+    tile_cols: int = 32,
+    fast_light: bool = True,
+    reverse_shadows: bool = True,
+    interpret: bool = False,
+):
+    """Tile-major BVH render with the "gpu" or "jax" tracer; `depth` is
+    the tree depth (FlatBVH.depth)."""
     cam_arrays = tuple(jnp.asarray(a) for a in ray_basis(cam, width, height))
-    return _render_bvh_pallas(
-        ds, packed_dev, cam_arrays, width, height, bounces,
-        leaf_size, tile_rows, tile_cols, interpret, fast_light,
-        stack_depth, compressed=compressed, dual=dual, stream=stream,
-        npop=npop, npop0=npop0, reverse_shadows=reverse_shadows,
-        adaptive=adaptive,
+    return _render_bvh(
+        ds, bvh, cam_arrays, width, height, bounces, variant, leaf_size,
+        depth, tile_rows, tile_cols, fast_light,
+        reverse_shadows=reverse_shadows, interpret=interpret,
     )

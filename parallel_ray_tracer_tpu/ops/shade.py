@@ -1,6 +1,6 @@
 """Shading + fixed-trip bounce loop (the whole-ray engine).
 
-TPU-native formulation of the reference GPU's iterative raytrace
+Batched formulation of the reference GPU's iterative raytrace
 (gpu/src/raytracer.cu:61-116), which is the canonical one (SURVEY.md §2/quirks):
 recursion becomes a fixed `bounces`-trip loop carrying (origin, dir,
 multiplier, final_color), early exits become lane masks. This shape is both
@@ -84,19 +84,11 @@ def _bcast_scalar_vec(v: Vec3, i: int, like: jax.Array) -> Vec3:
 def surface_attrs(ds, hit, p: Vec3):
     """(unit unflipped normal, kd, ks, kr) at the hit points.
 
-    HitFull (attribute-bearing Pallas hits) skips every per-lane gather —
-    the kernel already resolved the winning triangle's raw normal and
-    material coefficients with masked selects; we only normalize. Plain Hit
-    falls back to the gather path (brute/jax tracers, CPU). Sphere lanes
-    are overridden by a gather-free select loop either way.
+    Per-lane gathers of the winning triangle's normal and material (the
+    reference's material index read, gpu/include/triangle.cuh:8-28); sphere
+    lanes are overridden by a gather-free select loop.
     """
     from .spheres import override_attrs
-
-    if hasattr(hit, "kd"):
-        mag2 = hit.n.mag2()
-        inv = 1.0 / jnp.sqrt(jnp.maximum(mag2, 1e-30))
-        n = Vec3(hit.n.x * inv, hit.n.y * inv, hit.n.z * inv)
-        return override_attrs(ds, hit, p, n, hit.kd, hit.ks, hit.kr)
 
     T = ds.v0.x.shape[0]
     safe_idx = jnp.clip(hit.idx, 0, T - 1)
@@ -134,11 +126,9 @@ def shade_hit(
     from the light end, so the reversed call passes
     max_dist2 = (dist - EPS)^2 and the kernel's own t > EPS origin guard
     excludes only geometry within EPS of the light (none in practice).
-    The payoff is packet coherence: a pixel tile's shadow rays toward a
-    point light share ONE origin reversed — like primary rays from a
-    "light camera" — where their forward origins scatter across
-    geometry. Measured -16/-28/-32% on the bounce-0/1/2 occluded passes
-    (car_boxed 1080p, BENCHMARKS.md).
+    The payoff is coherence: a pixel tile's shadow rays toward a point
+    light share ONE origin reversed — like primary rays from a "light
+    camera" — where their forward origins scatter across geometry.
     """
     t_safe = jnp.where(hit.idx >= 0, hit.t, 1.0)
     if active is None:
@@ -200,15 +190,7 @@ def trace_rays(
 ) -> Vec3:
     """Full masked bounce loop; returns unclamped color per ray.
 
-    closest_fn / occluded_fn may each be a per-bounce sequence (entry b
-    traces bounce b; the last entry covers any remaining bounces) — the
-    pallas variant uses this to run the coherent primary bounce at a
-    narrower pop width than the divergent later bounces.
     reverse_shadows: see shade_hit."""
-    cfs = (list(closest_fn) if isinstance(closest_fn, (list, tuple))
-           else [closest_fn])
-    ofs = (list(occluded_fn) if isinstance(occluded_fn, (list, tuple))
-           else [occluded_fn])
     zero = Vec3(o.x * 0, o.y * 0, o.z * 0)
     final = zero
     mult = Vec3(o.x * 0 + 1, o.y * 0 + 1, o.z * 0 + 1)
@@ -216,7 +198,7 @@ def trace_rays(
 
     for b in range(bounces):
         o_m, d_m = mask_dead_rays(o, d, alive)
-        hit = cfs[min(b, len(cfs) - 1)](o_m, d_m)
+        hit = closest_fn(o_m, d_m)
         is_hit = hit.idx >= 0
 
         # Miss: add multiplier * ambient, lane dies (raytracer.cu:71-74).
@@ -229,7 +211,7 @@ def trace_rays(
         final = final + (mult * amb).where(miss_now, zero)
         alive = alive & is_hit
 
-        col = shade_hit(ds, ofs[min(b, len(ofs) - 1)], o, d, hit,
+        col = shade_hit(ds, occluded_fn, o, d, hit,
                         active=alive, reverse_shadows=reverse_shadows)
         final = final + (mult * col).where(alive, zero)
 

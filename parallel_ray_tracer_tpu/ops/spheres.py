@@ -8,7 +8,7 @@ participate in closest-hit, occlusion, shading and the differentiable path.
 Design: scenes carry few spheres (they have no acceleration structure in any
 renderer of this family), so spheres are tested as one dense batched pass
 *after* the triangle tracer — the (K rays x S spheres) test is a handful of
-VPU ops and XLA fuses it into the surrounding shading. Hit indices extend
+elementwise ops and XLA fuses it into the surrounding shading. Hit indices extend
 the triangle index space: idx in [0, T) is a triangle slot, idx in
 [T, T + S) is sphere idx - T; `norm_dir` carries the sphere's inside flag
 (normal flip) exactly like the triangle two-sided-normal flag.
@@ -96,8 +96,7 @@ def override_attrs(ds, hit, p: Vec3, n: Vec3, kd: Vec3, ks: Vec3, kr: Vec3):
     """Substitute sphere-surface attributes on lanes with sphere hits.
 
     A static unrolled loop over the (few) spheres using masked selects and
-    single-element table lookups — per-lane gathers over millions of rays
-    are pathologically slow on TPU, so this path never issues one.
+    single-element table lookups.
     """
     S = _num_spheres(ds)
     if S == 0:

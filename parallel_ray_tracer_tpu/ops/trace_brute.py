@@ -1,6 +1,6 @@
 """Brute-force tracer: every ray against every triangle.
 
-The TPU rewrite of the reference's USE_BVH=0 oracle path
+The batched rewrite of the reference's USE_BVH=0 oracle path
 (cpu/src/raytracer.c:112-130 closest hit, :85-97 occlusion): a lax.scan over
 triangle chunks carrying the running (t, index, norm_dir) minimum — the
 flash-attention-style streaming reduction, so memory stays O(rays + chunk)
@@ -26,24 +26,6 @@ class Hit(NamedTuple):
     t: jax.Array         # (R,) f32, T_MAX on miss
     idx: jax.Array       # (R,) i32 triangle index, -1 on miss
     norm_dir: jax.Array  # (R,) bool
-
-
-class HitFull(NamedTuple):
-    """Hit + surface attributes resolved during traversal.
-
-    Per-lane gathers on TPU cost ~17 ms per 2M rays (XLA lowers them to a
-    serialized path), so the Pallas kernels track the winning triangle's
-    unnormalized geometric normal and material coefficients with masked
-    selects at leaf time — attribute-bearing hits skip every shading gather.
-    """
-
-    t: jax.Array
-    idx: jax.Array
-    norm_dir: jax.Array
-    n: "Vec3"            # unnormalized e1 x e2 of the winning triangle
-    kd: "Vec3"
-    ks: "Vec3"
-    kr: "Vec3"
 
 
 def _chunked_tris(ds, chunk: int):

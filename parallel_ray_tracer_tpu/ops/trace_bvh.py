@@ -1,13 +1,12 @@
 """Packet BVH traversal in pure JAX (lax.while_loop reference).
 
-TPU-native rewrite of the reference's per-ray stack traversals
-(cpu/src/bvh.c:317-358 closest hit, :269-315 any-hit shadow): instead of one
-divergent stack per ray (the CUDA formulation, gpu/src/bvh.cu:342-392), a
-whole *packet* of K rays shares one traversal stack. The stack and node
-fetches are scalar; every AABB slab test and Möller–Trumbore test is a dense
-(K,) / (K, L) vector op on the VPU. A node is visited when ANY lane in the
-packet can still be improved by it, so the result is exactly the per-ray
-reference result — packets only change which nodes get *culled*.
+A packet rewrite of the reference's per-ray stack traversals
+(cpu/src/bvh.c:317-358 closest hit, :269-315 any-hit shadow): a whole
+*packet* of K rays shares one traversal stack. The stack and node fetches
+are scalar; every AABB slab test and Möller–Trumbore test is a dense
+(K,) / (K, L) vector op. A node is visited when ANY lane in the packet can
+still be improved by it, so the result is exactly the per-ray reference
+result — packets only change which nodes get *culled*.
 
 Near-child-first ordering (the reference's swap at cpu/src/bvh.c:344-350)
 becomes a per-packet majority vote of lanes on which child is nearer.
@@ -18,9 +17,8 @@ Early exits become masks:
     empties or every lane is blocked (bvh_light_traverse's return-false
     early exit, cpu/src/bvh.c:283-290).
 
-This module is the correctness reference and the portable fallback; the
-Pallas kernel (ops/pallas_trace.py) implements the same algorithm with
-explicit VMEM staging.
+This module is the plain-XLA reference for the per-ray GPU kernels
+(ops/gpu_trace.py), which read the same DeviceBVH.
 """
 
 from __future__ import annotations
@@ -46,7 +44,7 @@ class DeviceBVH(NamedTuple):
 
 
 def device_bvh_from_flat(flat, bf16: bool = False) -> Tuple[DeviceBVH, int, int]:
-    """Upload a host FlatBVH; returns (bvh, leaf_size, stack_depth)."""
+    """Upload a host FlatBVH; returns (bvh, leaf_size, tree depth)."""
     if bf16:
         from .bvh_flat import compress_bf16
 
@@ -62,10 +60,13 @@ def device_bvh_from_flat(flat, bf16: bool = False) -> Tuple[DeviceBVH, int, int]
         count=jnp.asarray(flat.count),
         a=jnp.asarray(flat.a),
     )
-    # Packet traversal can push both children per level: bound the stack by
-    # tree depth + 2 rounded to a friendly size.
-    stack_depth = max(16, 2 * (flat.depth + 2))
-    return bvh, flat.leaf_size, stack_depth
+    return bvh, flat.leaf_size, flat.depth
+
+
+def packet_stack_depth(depth: int) -> int:
+    """Packet traversal can push both children per level: bound the stack
+    by tree depth + 2, doubled, with a floor."""
+    return max(16, 2 * (depth + 2))
 
 
 def _node_aabb(bvh: DeviceBVH, i) -> Tuple[Vec3, Vec3]:
@@ -231,14 +232,16 @@ def packet_occluded(
     return blocked
 
 
-def make_tracer(bvh: DeviceBVH, ds, leaf_size: int, stack_depth: int, packet: int):
+def make_tracer(bvh: DeviceBVH, ds, leaf_size: int, depth: int, packet: int):
     """(closest, occluded) over flat (R,) ray planes, R % packet == 0.
 
-    Rays are traced packet-by-packet with lax.map — the sequential-grid analog
-    of the Pallas kernel; each packet is already full-VPU-width work.
-    Sphere primitives are tested in a dense post-pass (ops/spheres.py).
+    `depth` is the tree depth (FlatBVH.depth). The packets are vmapped, so
+    one while loop advances all of them together. Sphere primitives are
+    tested in a dense post-pass (ops/spheres.py).
     """
     from .spheres import wrap_tracer
+
+    stack_depth = packet_stack_depth(depth)
 
     def closest(o: Vec3, d: Vec3) -> Hit:
         R = o.x.shape[0]
@@ -251,7 +254,7 @@ def make_tracer(bvh: DeviceBVH, ds, leaf_size: int, stack_depth: int, packet: in
                 bvh, ds, oo, dd, leaf_size=leaf_size, stack_depth=stack_depth
             )
 
-        h = jax.lax.map(one, (o.reshape(n, packet), d.reshape(n, packet)))
+        h = jax.vmap(one)((o.reshape(n, packet), d.reshape(n, packet)))
         return Hit(
             t=h.t.reshape(R), idx=h.idx.reshape(R), norm_dir=h.norm_dir.reshape(R)
         )
@@ -267,8 +270,7 @@ def make_tracer(bvh: DeviceBVH, ds, leaf_size: int, stack_depth: int, packet: in
                 bvh, ds, oo, dd, m2, leaf_size=leaf_size, stack_depth=stack_depth
             )
 
-        blocked = jax.lax.map(
-            one,
+        blocked = jax.vmap(one)(
             (
                 o.reshape(n, packet),
                 d.reshape(n, packet),

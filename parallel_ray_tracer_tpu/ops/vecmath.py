@@ -1,11 +1,11 @@
 """SoA 3-vector math over JAX arrays.
 
-The TPU-native replacement for the reference's `vec_t` (cpu/include/vec.h:4-32,
+The array-plane replacement for the reference's `vec_t` (cpu/include/vec.h:4-32,
 gpu/include/vec.cuh:6-27). Instead of padding a 3-float struct to 16 bytes for
 coalescing (the GPU "float_align" trick), we store each component as its own
-full array plane: every elementwise op then runs at full 8x128 VPU lane
-utilization and XLA fuses chains of them into single kernels (the `vec_ma` FMA
-fusion of gpu/src/vec.cu:100-114 falls out for free).
+full array plane: every elementwise op reads dense, contiguous lanes and XLA
+fuses chains of them into single kernels (the `vec_ma` FMA fusion of
+gpu/src/vec.cu:100-114 falls out for free).
 
 A Vec3 is a pytree, so it passes through jit/vmap/shard_map/grad unchanged.
 """

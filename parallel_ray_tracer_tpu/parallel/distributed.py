@@ -1,21 +1,22 @@
 """Multi-host initialization (SURVEY.md §5: distributed communication).
 
 The reference has no distributed story (single process, single GPU; its only
-transfers are cudaMemcpy H2D/D2H, gpu/src/gpu.cu:142-196). On TPU pods the
+transfers are cudaMemcpy H2D/D2H, gpu/src/gpu.cu:142-196). Across hosts the
 runtime is jax.distributed: one process per host, all devices visible as one
-global mesh, collectives riding ICI within a slice (and DCN across slices)
-— no NCCL/MPI plumbing to write.
+global mesh, collectives handed to NCCL by XLA — no communication plumbing to
+write.
 
-Usage on each host of a pod slice:
+Usage on each host (pass the coordinator explicitly, or set
+JAX_COORDINATOR_ADDRESS):
 
     from parallel_ray_tracer_tpu.parallel import distributed, sharded
-    distributed.initialize()          # no-op on single-host
+    distributed.initialize("host0:1234", num_processes=2, process_id=rank)
     mesh = sharded.make_mesh()        # all global devices
     img = sharded.render_sharded(..., mesh=mesh)
 
 Rendering needs no cross-host communication in the forward pass (tiles are
 disjoint); assembling the full frame on host 0 happens implicitly when the
-sharded output is fetched (jax gathers via ICI/DCN), and the differentiable
+sharded output is fetched, and the differentiable
 path's gradient all-reduce is inserted by XLA from the sharding specs.
 """
 
@@ -34,25 +35,20 @@ def initialize(
 ) -> None:
     """Initialize jax.distributed when running multi-process.
 
-    With no arguments, relies on the TPU environment's auto-detection
-    (JAX resolves coordinator/process topology from the TPU metadata); a
-    single-process run (or an already-initialized runtime) is a no-op.
+    Multi-process runs are recognised from the explicit arguments or from
+    JAX_COORDINATOR_ADDRESS; a single-process run (or an already-initialized
+    runtime) is a no-op.
 
     The multiprocess decision must NOT touch the backend: querying
     jax.process_count() would initialize it, after which
     jax.distributed.initialize() can no longer join a coordinator — the
     guard would always see process_count() == 1 and this function could
-    never fire on a real pod. Detect from explicit arguments and the
-    environment only: the coordinator env vars, or libtpu's
-    TPU_WORKER_HOSTNAMES (a comma-separated list on a multi-host slice,
-    the signal jax's own cluster auto-detection keys off).
+    never fire.
     """
     multiprocess_env = (
         coordinator_address is not None
         or (num_processes or 0) > 1
         or os.environ.get("JAX_COORDINATOR_ADDRESS")
-        or os.environ.get("MEGASCALE_COORDINATOR_ADDRESS")
-        or "," in os.environ.get("TPU_WORKER_HOSTNAMES", "")
     )
     if not multiprocess_env:
         return

@@ -2,7 +2,7 @@
 
 The reference's only parallelism is intra-host (pthreads work-stealing,
 cpu/src/main.c:214-264; CUDA grid, gpu/src/gpu.cu:98-100). This module scales
-the same axis — pixels — across TPU chips the idiomatic way (SURVEY.md §2.3):
+the same axis — pixels — across devices (SURVEY.md §2.3):
 
   - one mesh axis ``tiles``; ray packets (1024-pixel tiles) are sharded over
     it, scene + BVH are replicated (the "shard the long axis, replicate the
@@ -15,15 +15,15 @@ the same axis — pixels — across TPU chips the idiomatic way (SURVEY.md §2.3
     differentiable path all-reduces parameter gradients, which XLA inserts
     automatically from the sharding annotations.
 
-`render_sharded` wraps any tracer variant inside shard_map (Pallas kernels
-compose with shard_map per the standard pattern); `train_step_sharded` is the
-jitted differentiable step used by the multi-chip dry run.
+`render_sharded` wraps any tracer variant inside shard_map (the Pallas
+kernels run per device on the local shard); `make_train_step` builds the
+jitted differentiable step.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import Optional
 
 import jax
 import jax.numpy as jnp
@@ -32,10 +32,13 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..models.camera import Camera, ray_basis
 from ..models.device_scene import build_device_scene
-from ..ops import pallas_trace, trace_bvh
-from ..ops.render import generate_rays_tiled, tile_image_shape, tiles_to_image
-from ..ops.shade import occluded_from_closest, trace_rays
-from ..ops.trace_brute import make_tracer as make_brute_tracer
+from ..ops.render import (
+    generate_rays_tiled,
+    make_tracers,
+    tile_image_shape,
+    tiles_to_image,
+)
+from ..ops.shade import trace_rays
 from ..ops.vecmath import Vec3
 
 
@@ -68,34 +71,27 @@ def _pad_tiles(ntiles: int, n_devices: int) -> int:
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "width", "height", "bounces", "leaf_size", "stack_depth",
-        "tile_rows", "tile_cols", "variant", "mesh", "interpret",
-        "compressed", "dual", "stream", "npop", "npop0", "fast_light",
-        "reverse_shadows", "adaptive",
+        "width", "height", "bounces", "leaf_size", "depth", "tile_rows",
+        "tile_cols", "variant", "mesh", "interpret", "fast_light",
+        "reverse_shadows",
     ),
 )
 def _render_sharded(
     ds,
-    tracer_data,
+    bvh,
     cam_arrays,
     width: int,
     height: int,
     bounces: int,
     leaf_size: int,
-    stack_depth: int,
+    depth: int,
     tile_rows: int,
     tile_cols: int,
     variant: str,
     mesh: Mesh,
     interpret: bool,
-    compressed: bool = False,
-    dual: bool = True,
-    stream: bool = False,
-    npop: int = 2,
-    npop0: int = 0,
     fast_light: bool = True,
     reverse_shadows: bool = True,
-    adaptive: bool = False,
 ):
     K = tile_rows * tile_cols
     n_dev = mesh.devices.size
@@ -113,60 +109,15 @@ def _render_sharded(
     o_t = Vec3(to_tiles(o.x)[perm], to_tiles(o.y)[perm], to_tiles(o.z)[perm])
     d_t = Vec3(to_tiles(d.x)[perm], to_tiles(d.y)[perm], to_tiles(d.z)[perm])
 
-    def shard_body(ds_r, tracer_r, o_sh, d_sh):
+    def shard_body(ds_r, bvh_r, o_sh, d_sh):
         # (ntiles_p / n_dev, K) per device -> flat rays
         nt_local = o_sh.x.shape[0]
         of = o_sh.reshape(nt_local * K)
         df = d_sh.reshape(nt_local * K)
-        if variant == "fused":
-            # Whole-frame kernel per device shard at the full production
-            # schedule: per-bounce pop widths, MXU leaves (cmat row),
-            # reversed shadow packets, dense in-kernel sphere pass.
-            lamb = pallas_trace.pack_lights(ds_r)
-            rows = of.x.shape[0] // pallas_trace.LANES
-            col = pallas_trace.frame_tiles(
-                *tracer_r[:4], lamb,
-                of.reshape(rows, pallas_trace.LANES),
-                df.reshape(rows, pallas_trace.LANES),
-                bounces=bounces, leaf_size=leaf_size, interpret=interpret,
-                stack_depth=stack_depth, compressed=compressed,
-                cmat=tracer_r[4] if len(tracer_r) >= 5 else None,
-                npop=npop, npop0=npop0, reverse_shadows=reverse_shadows,
-                adaptive=adaptive, sph=pallas_trace.pack_spheres(ds_r),
-            ).reshape(nt_local * K)
-            col = col.clamp(0.0, 1.0)
-            return jnp.stack(
-                [col.x, col.y, col.z], axis=-1
-            ).reshape(nt_local, K, 3)
-        if variant == "pallas":
-            closest_fn, occluded_fn = pallas_trace.make_tracer(
-                tracer_r, leaf_size, interpret=interpret, ds=ds_r,
-                stack_depth=stack_depth, compressed=compressed,
-                dual=dual, stream=stream, npop=npop, adaptive=adaptive,
-            )
-            if npop0 and npop0 != npop:
-                # Coherent primary bounce at its own (narrower) pop width,
-                # exactly as the single-device path (_render_bvh_pallas).
-                c0, o0 = pallas_trace.make_tracer(
-                    tracer_r, leaf_size, interpret=interpret, ds=ds_r,
-                    stack_depth=stack_depth, compressed=compressed,
-                    dual=dual, stream=stream, npop=npop0, adaptive=adaptive,
-                )
-                closest_fn = [c0, closest_fn]
-                occluded_fn = [o0, occluded_fn]
-        elif variant == "jax":
-            closest_fn, occluded_fn = trace_bvh.make_tracer(
-                tracer_r, ds_r, leaf_size, stack_depth, packet=K
-            )
-        else:
-            closest_fn, occluded_fn = make_brute_tracer(ds_r)
-        if not fast_light:
-            # USE_BVH_FAST_LIGHT=0 parity: forward closest-hit shadows.
-            occluded_fn = (
-                [occluded_from_closest(c) for c in closest_fn]
-                if isinstance(closest_fn, list)
-                else occluded_from_closest(closest_fn)
-            )
+        closest_fn, occluded_fn = make_tracers(
+            variant, ds_r, bvh_r, leaf_size, depth, K, interpret=interpret,
+            fast_light=fast_light,
+        )
         col = trace_rays(ds_r, closest_fn, occluded_fn, of, df, bounces,
                          reverse_shadows=fast_light and reverse_shadows)
         col = col.clamp(0.0, 1.0)
@@ -175,7 +126,7 @@ def _render_sharded(
     rep = P()
     rep_specs = (
         jax.tree.map(lambda _: rep, ds),
-        jax.tree.map(lambda _: rep, tracer_data),
+        jax.tree.map(lambda _: rep, bvh),
     )
     out = jax.shard_map(
         shard_body,
@@ -185,7 +136,7 @@ def _render_sharded(
         # The traversal's lax.cond mixes replicated (scene) and per-shard
         # (ray) operands; skip the varying-manual-axes checker.
         check_vma=False,
-    )(ds, tracer_data, o_t, d_t)
+    )(ds, bvh, o_t, d_t)
 
     inv_perm = jnp.argsort(perm)
     out = out[inv_perm][:ntiles].reshape(ntiles * K, 3)
@@ -194,41 +145,33 @@ def _render_sharded(
 
 def render_sharded(
     ds,
-    tracer_data,
+    bvh,
     cam: Camera,
     width: int,
     height: int,
     mesh: Mesh,
     bounces: int = 4,
     leaf_size: int = 8,
-    stack_depth: int = 64,
+    depth: Optional[int] = None,
     tile_rows: int = 32,
     tile_cols: int = 32,
-    variant: str = "pallas",
+    variant: str = "gpu",
     interpret: bool = False,
-    compressed: bool = False,
-    dual: bool = True,
-    stream: bool = False,
-    npop: int = 2,
-    npop0: int = 0,
     fast_light: bool = True,
     reverse_shadows: bool = True,
-    adaptive: bool = False,
 ):
     """Render with image tiles sharded over `mesh` (scene replicated).
 
-    tracer_data: packed_dev tuple for "pallas"/"fused", DeviceBVH for
-    "jax", or ds again for "bruteforce". dual/stream/npop/npop0/
-    fast_light/reverse_shadows carry the full single-device kernel
-    schedule so `--devices N` renders the image bit-identically to
-    `--devices 1` (tests/test_sharded.py).
+    bvh: the DeviceBVH for "gpu"/"jax" (None for "bruteforce"); depth is
+    the tree depth. fast_light/reverse_shadows carry the single-device
+    shading schedule, so `--devices N` renders the image of `--devices 1`
+    (tests/test_sharded.py).
     """
     cam_arrays = tuple(jnp.asarray(a) for a in ray_basis(cam, width, height))
     return _render_sharded(
-        ds, tracer_data, cam_arrays, width, height, bounces, leaf_size,
-        stack_depth, tile_rows, tile_cols, variant, mesh, interpret,
-        compressed, dual, stream, npop, npop0, fast_light, reverse_shadows,
-        adaptive,
+        ds, bvh, cam_arrays, width, height, bounces, leaf_size, depth,
+        tile_rows, tile_cols, variant, mesh, interpret, fast_light,
+        reverse_shadows,
     )
 
 
@@ -245,38 +188,31 @@ def make_train_step(
     lr: float = 1e-2,
     tile_rows: int = 32,
     tile_cols: int = 32,
-    variant: str = "brute",
-    tracer_data=None,
+    variant: str = "bruteforce",
+    bvh=None,
     leaf_size: int = 8,
-    stack_depth: int = 96,
+    depth: Optional[int] = None,
     slot_map=None,
     interpret: bool = False,
-    compressed: bool = False,
-    dual: bool = True,
-    stream: bool = False,
-    npop: int = 2,
-    npop0: int = 0,
     fast_light: bool = True,
     reverse_shadows: bool = True,
-    adaptive: bool = False,
 ):
     """Jitted SGD step optimizing vertex positions against a target image.
 
     variant selects the differentiable forward:
-      - "brute": pure-jnp all-triangles tracer, exact AD end to end;
+      - "bruteforce": pure-jnp all-triangles tracer, exact AD end to end;
         rays sharded via GSPMD annotations, verts replicated, XLA inserts
         the gradient all-reduce.
-      - "jax" / "pallas": the PRODUCTION BVH tracers (packet while_loop /
-        Pallas attribute kernels) wrapped by ops/diff.make_diff_closest —
-        traversal runs under stop_gradient for the frozen hit topology,
-        gradients flow through the analytic recompute (and, for HitFull,
-        the scatter-backed material resolve). These run inside shard_map
-        with scene/BVH replicated and an explicit psum of the loss.
-        `tracer_data` is the DeviceBVH / packed_dev tuple (built from the
-        CURRENT verts — rebuild it as vertices move, exactly like any
-        BVH-based differentiable renderer refits its acceleration
-        structure between optimization steps); `slot_map` must be the
-        flattened BVH's slot permutation so hit indices address ds planes.
+      - "gpu" / "jax": the BVH tracers (per-ray kernels / vmapped packet
+        while_loop) wrapped by ops/diff.make_diff_closest — traversal runs
+        under stop_gradient for the frozen hit topology, gradients flow
+        through the analytic recompute. These run inside shard_map with
+        scene/BVH replicated and an explicit psum of the loss.
+        `bvh` is the DeviceBVH built from the CURRENT verts (rebuild it as
+        vertices move, as any BVH-based differentiable renderer refits its
+        acceleration structure between steps) and `depth` its tree depth;
+        `slot_map` must be the flattened BVH's slot permutation so hit
+        indices address ds planes.
     """
     from ..ops import diff
 
@@ -305,40 +241,6 @@ def make_train_step(
     tile_sharding = NamedSharding(mesh, P("tiles"))
     rep_sharding = NamedSharding(mesh, P())
 
-    def make_tracers(ds):
-        """(closest, occluded) at the FULL production kernel schedule —
-        per-bounce pop widths (npop0), fast-light vs closest-derived
-        occlusion, mirroring ops/render._render_bvh_pallas so the sharded
-        training forward renders exactly what render_sharded renders
-        (round-3 verdict #7; parity pinned by tests/test_sharded.py)."""
-        if variant == "pallas":
-            closest_fn, occluded_fn = pallas_trace.make_tracer(
-                tracer_data, leaf_size, interpret=interpret, ds=ds,
-                stack_depth=stack_depth, compressed=compressed,
-                dual=dual, stream=stream, npop=npop, adaptive=adaptive,
-            )
-            if npop0 and npop0 != npop:
-                c0, o0 = pallas_trace.make_tracer(
-                    tracer_data, leaf_size, interpret=interpret, ds=ds,
-                    stack_depth=stack_depth, compressed=compressed,
-                    dual=dual, stream=stream, npop=npop0, adaptive=adaptive,
-                )
-                closest_fn = [c0, closest_fn]
-                occluded_fn = [o0, occluded_fn]
-        elif variant == "jax":
-            closest_fn, occluded_fn = trace_bvh.make_tracer(
-                tracer_data, ds, leaf_size, stack_depth, packet=K
-            )
-        else:
-            closest_fn, occluded_fn = make_brute_tracer(ds)
-        if not fast_light:
-            occluded_fn = (
-                [occluded_from_closest(c) for c in closest_fn]
-                if isinstance(closest_fn, list)
-                else occluded_from_closest(closest_fn)
-            )
-        return closest_fn, occluded_fn
-
     def forward_local(verts, o_t: Vec3, d_t: Vec3):
         """(local_tiles, K) rays -> (local_tiles, K, 3) image, diff."""
         kd, ks, kr, lp, kl = consts
@@ -348,9 +250,12 @@ def make_train_step(
         nt_local = o_t.x.shape[0]
         of = Vec3(*(p.reshape(-1) for p in o_t))
         df = Vec3(*(p.reshape(-1) for p in d_t))
-        closest_fn, occluded_fn = make_tracers(ds)
+        closest_fn, occluded_fn = make_tracers(
+            variant, ds, bvh, leaf_size, depth, K, interpret=interpret,
+            fast_light=fast_light,
+        )
         rs = fast_light and reverse_shadows
-        if variant == "brute":
+        if variant == "bruteforce":
             # the bruteforce oracle never reverses shadows (render.py:94-98)
             col = trace_rays(ds, closest_fn, occluded_fn, of, df, bounces)
         else:
@@ -368,7 +273,7 @@ def make_train_step(
     tile_mask = (jnp.arange(ntiles_p) < ntiles).astype(jnp.float32)[:, None, None]
     n_real = ntiles * K * 3
 
-    if variant == "brute":
+    if variant == "bruteforce":
         def loss_fn(verts, o_t, d_t, target):
             img = forward_local(verts, o_t, d_t)
             return jnp.sum(tile_mask * (img - target) ** 2) / n_real

@@ -1,10 +1,10 @@
 """End-to-end pipeline: config -> scene -> BVH -> device arrays -> render.
 
-The TPU analog of the reference's main() flow (cpu/src/main.c:90-212,
+The analog of the reference's main() flow (cpu/src/main.c:90-212,
 gpu/src/main.cu:80-141): load scene, build BVH (timed), upload once, render
 many frames. Everything after `prepare()` is jitted and device-resident —
-the scene/BVH stay on-chip across frames exactly like the reference keeps
-them across kernel launches (gpu/src/main.cu:110-115).
+the scene/BVH stay on the device across frames exactly like the reference
+keeps them across kernel launches (gpu/src/main.cu:110-115).
 """
 
 from __future__ import annotations
@@ -12,29 +12,46 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import Optional, Tuple
+from typing import Optional
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from .config import RenderConfig
 from .models.camera import Camera
 from .models.device_scene import DeviceScene, device_scene_from_host
 from .models.scene import Scene, load_scene, synthetic_scene
-from .ops import pallas_trace, render as render_ops, trace_bvh
+from .ops import render as render_ops, trace_bvh
 from .ops.bvh import BVH, build_bvh
 from .ops.bvh_flat import FlatBVH, flatten_bvh
 
-# Scene-block VMEM ceiling for the MXU leaf path: the v5e holds 128 MB of
-# VMEM and the padded C-matrix table (rows x 128 lanes x 2 B) dominates;
-# leave headroom for ray windows, stacks, and the fused kernel's state.
-_MXU_VMEM_BUDGET = 88 * 1024 * 1024
-# Ceiling for the 4-group lane-packed C-matrix layout (pack_cmi4): the
-# whole resident block (scene rows + packed table) must stay under the
-# hardware-measured ~126 MB compile ceiling with margin for rays,
-# outputs and stacks.
-_MXU_VMEM_BUDGET4 = 112 * 1024 * 1024
+
+def resolve_variant(variant: str, use_bvh: bool = True,
+                    interpret: bool = False) -> str:
+    """Resolve "auto" to a concrete tracer variant.
+
+    "auto" is the per-ray GPU kernel. Without a GPU it fails instead of
+    quietly tracing on the CPU: the kernel then runs only when the caller
+    asks for the Pallas interpreter (interpret=True), and the pure-JAX
+    variants only when named. USE_BVH=0 always means bruteforce.
+    """
+    if not use_bvh:
+        return "bruteforce"
+    if variant == "auto":
+        variant = "gpu"
+    if variant not in render_ops.VARIANTS:
+        raise ValueError(
+            f"unknown variant {variant!r}; expected 'auto' or one of "
+            f"{render_ops.VARIANTS}"
+        )
+    if variant == "gpu" and not interpret and jax.default_backend() != "gpu":
+        raise RuntimeError(
+            "the 'gpu' tracer (the default 'auto' variant) needs a GPU, and "
+            f"JAX's backend is {jax.default_backend()!r}. Name the 'jax' or "
+            "'bruteforce' variant, or ask for the Pallas interpreter "
+            "(interpret=True, --interpret), to render without one."
+        )
+    return variant
 
 
 @dataclasses.dataclass
@@ -44,20 +61,13 @@ class Pipeline:
     cfg: RenderConfig
     scene: Scene
     ds: DeviceScene
-    bvh: Optional[BVH]               # host tree (None when use_bvh=False)
+    bvh: Optional[BVH]               # host tree (None: native build or no BVH)
     flat: Optional[FlatBVH]
-    dbvh: Optional[trace_bvh.DeviceBVH]   # jax-variant device tree
-    packed_dev: Optional[Tuple]           # pallas-variant (cbox, cmeta, tri)
+    dbvh: Optional[trace_bvh.DeviceBVH]
     leaf_size: int
-    stack_depth: int
+    depth: int                       # tree depth; sizes the traversal stacks
     build_ms: float
     bvh_stats: Optional[dict] = None
-    pallas_stack_depth: int = 96          # worst-case SMEM stack words
-    compressed: bool = False              # bf16-pair box rows (pallas)
-    stream: bool = False                  # HBM-streamed leaf rows (pallas)
-    npop: int = 2                         # wide-pop width actually in effect
-    npop0: int = 0                        # bounce-0 pop width (0 = npop)
-    adaptive: bool = False                # width-switched inner pops
 
     def bvh_metrics_banner(self) -> Optional[str]:
         """The reference's BVH_METRICS printout (cpu/src/bvh.c:381-387)."""
@@ -77,31 +87,12 @@ class Pipeline:
             pos=self.cfg.cam_pos, rot=self.cfg.cam_rot, fov=self.cfg.cam_fov
         )
 
-    def resolved_variant(self, variant: Optional[str] = None) -> str:
-        """Resolve "auto" (and None) to a concrete tracer variant.
-
-        "auto" picks the fastest path the prepared state supports: the
-        fused whole-frame kernel (the headline configuration) whenever the
-        scene is resident (non-streamed), traced with the any-hit shadow
-        kernels, and packed at bvh_width >= 4 — otherwise the pass-based
-        pallas kernels. Spheres are first-class in the fused kernel (a
-        dense in-kernel pass). USE_BVH=0 always means bruteforce.
-        """
-        cfg = self.cfg
-        variant = variant or cfg.variant
-        if not cfg.use_bvh:
-            return "bruteforce"
-        if variant != "auto":
-            return variant
-        fused_ok = (
-            self.packed_dev is not None
-            and len(self.packed_dev) >= 4
-            and cfg.bvh_width >= 4
-            and not self.stream
-            and cfg.fast_light
-            and cfg.tile_rows * cfg.tile_cols == pallas_trace.PACKET
+    def resolved_variant(self, variant: Optional[str] = None,
+                         interpret: bool = False) -> str:
+        """The concrete tracer for `variant` (default: the config's)."""
+        return resolve_variant(
+            variant or self.cfg.variant, self.cfg.use_bvh, interpret
         )
-        return "fused" if fused_ok else "pallas"
 
     def render(
         self,
@@ -116,46 +107,18 @@ class Pipeline:
         cam = cam or self.camera()
         width = width or cfg.width
         height = height or cfg.height
-        variant = self.resolved_variant(variant)
-
+        variant = self.resolved_variant(variant, interpret)
         if variant == "bruteforce":
             return render_ops.render_bruteforce(
                 self.ds, cam, width, height, bounces=cfg.bounces
             )
-        if variant == "jax":
-            assert self.dbvh is not None
-            return render_ops.render_bvh_jax(
-                self.ds, self.dbvh, cam, width, height, bounces=cfg.bounces,
-                leaf_size=self.leaf_size, stack_depth=self.stack_depth,
-                tile_rows=cfg.tile_rows, tile_cols=cfg.tile_cols,
-                fast_light=cfg.fast_light,
-                reverse_shadows=cfg.reverse_shadows,
-            )
-        if variant == "fused":
-            assert self.packed_dev is not None and len(self.packed_dev) >= 4
-            return render_ops.render_bvh_fused(
-                self.ds, self.packed_dev, cam, width, height,
-                bounces=cfg.bounces, leaf_size=self.leaf_size,
-                tile_rows=cfg.tile_rows, tile_cols=cfg.tile_cols,
-                interpret=interpret, stack_depth=self.pallas_stack_depth,
-                compressed=self.compressed, npop=self.npop,
-                npop0=self.npop0, reverse_shadows=cfg.reverse_shadows,
-                adaptive=self.adaptive,
-            )
-        if variant == "pallas":
-            assert self.packed_dev is not None
-            return render_ops.render_bvh_pallas(
-                self.ds, self.packed_dev, cam, width, height,
-                bounces=cfg.bounces, leaf_size=self.leaf_size,
-                tile_rows=cfg.tile_rows, tile_cols=cfg.tile_cols,
-                interpret=interpret, fast_light=cfg.fast_light,
-                stack_depth=self.pallas_stack_depth,
-                compressed=self.compressed, dual=cfg.dual_pop,
-                stream=self.stream, npop=self.npop, npop0=self.npop0,
-                reverse_shadows=cfg.reverse_shadows,
-                adaptive=self.adaptive,
-            )
-        raise ValueError(f"unknown variant {variant!r}")
+        return render_ops.render_bvh(
+            self.ds, self.dbvh, cam, width, height, variant=variant,
+            bounces=cfg.bounces, leaf_size=self.leaf_size, depth=self.depth,
+            tile_rows=cfg.tile_rows, tile_cols=cfg.tile_cols,
+            fast_light=cfg.fast_light, reverse_shadows=cfg.reverse_shadows,
+            interpret=interpret,
+        )
 
     def render_band(
         self,
@@ -180,39 +143,46 @@ class Pipeline:
             jnp.asarray(a) for a in ray_basis(cam, cfg.width, cfg.height)
         )
         y0 = jnp.int32(y0)  # dynamic: bands share one compiled program
-        variant = self.resolved_variant(variant)
+        variant = self.resolved_variant(variant, interpret)
         if variant == "bruteforce":
             return render_ops._render_bruteforce(
                 self.ds, cam_arrays, cfg.width, rows, cfg.bounces,
                 y_offset=y0,
             )
-        if variant == "jax":
-            return render_ops._render_bvh_jax(
-                self.ds, self.dbvh, cam_arrays, cfg.width, rows,
-                cfg.bounces, self.leaf_size, self.stack_depth,
-                cfg.tile_rows, cfg.tile_cols, cfg.fast_light,
-                y_offset=y0, reverse_shadows=cfg.reverse_shadows,
-            )
-        if variant == "fused":
-            return render_ops._render_bvh_fused(
-                self.ds, self.packed_dev, cam_arrays, cfg.width, rows,
-                cfg.bounces, self.leaf_size, cfg.tile_rows, cfg.tile_cols,
-                interpret, self.pallas_stack_depth, y_offset=y0,
-                compressed=self.compressed, npop=self.npop,
-                npop0=self.npop0, reverse_shadows=cfg.reverse_shadows,
-                adaptive=self.adaptive,
-            )
-        if variant == "pallas":
-            return render_ops._render_bvh_pallas(
-                self.ds, self.packed_dev, cam_arrays, cfg.width, rows,
-                cfg.bounces, self.leaf_size, cfg.tile_rows, cfg.tile_cols,
-                interpret, cfg.fast_light, self.pallas_stack_depth,
-                y_offset=y0, compressed=self.compressed, dual=cfg.dual_pop,
-                stream=self.stream, npop=self.npop, npop0=self.npop0,
-                reverse_shadows=cfg.reverse_shadows,
-                adaptive=self.adaptive,
-            )
-        raise ValueError(f"unknown variant {variant!r}")
+        return render_ops._render_bvh(
+            self.ds, self.dbvh, cam_arrays, cfg.width, rows, cfg.bounces,
+            variant, self.leaf_size, self.depth, cfg.tile_rows,
+            cfg.tile_cols, cfg.fast_light, y_offset=y0,
+            reverse_shadows=cfg.reverse_shadows, interpret=interpret,
+        )
+
+
+def _load(cfg: RenderConfig, native) -> Scene:
+    if cfg.synthetic_triangles > 0:
+        return synthetic_scene(cfg.synthetic_triangles, seed=cfg.seed)
+    try:
+        asset_dir = cfg.asset_dir()
+        return (
+            native.load_scene_native(asset_dir) if native else None
+        ) or load_scene(asset_dir)
+    except FileNotFoundError:
+        from .config import DEFAULT_ASSET_ROOTS
+        from .models.procgen import substitute_scene
+        from .models.scene import load_scene_npz
+
+        roots = (cfg.asset_root,) if cfg.asset_root else DEFAULT_ASSET_ROOTS
+        # Repo-bundled npz snapshots keep car_only/car_boxed renderable
+        # without the reference's OBJ assets.
+        for root in roots:
+            snap = os.path.join(root, cfg.scene + ".npz")
+            if os.path.isfile(snap):
+                return load_scene_npz(snap)
+        # dragon/sportscar/two_cars OBJs are LFS-stripped upstream;
+        # regenerate deterministic substitutes.
+        scene = substitute_scene(cfg.scene, roots, seed=cfg.seed)
+        if scene is None:
+            raise
+        return scene
 
 
 def prepare(cfg: RenderConfig, scene: Optional[Scene] = None) -> Pipeline:
@@ -225,226 +195,51 @@ def prepare(cfg: RenderConfig, scene: Optional[Scene] = None) -> Pipeline:
             native = None
 
     if scene is None:
-        if cfg.synthetic_triangles > 0:
-            scene = synthetic_scene(cfg.synthetic_triangles, seed=cfg.seed)
-        else:
-            try:
-                asset_dir = cfg.asset_dir()
-                scene = (
-                    native.load_scene_native(asset_dir) if native else None
-                ) or load_scene(asset_dir)
-            except FileNotFoundError:
-                from .config import DEFAULT_ASSET_ROOTS
-                from .models.procgen import substitute_scene
-                from .models.scene import load_scene_npz
-
-                roots = (
-                    (cfg.asset_root,) if cfg.asset_root else DEFAULT_ASSET_ROOTS
-                )
-                # Repo-bundled npz snapshots keep car_only/car_boxed
-                # renderable without the reference checkout present.
-                scene = None
-                for root in roots:
-                    snap = os.path.join(root, cfg.scene + ".npz")
-                    if os.path.isfile(snap):
-                        scene = load_scene_npz(snap)
-                        break
-                if scene is None:
-                    # dragon/sportscar/two_cars OBJs are LFS-stripped
-                    # upstream; regenerate deterministic substitutes.
-                    scene = substitute_scene(cfg.scene, roots, seed=cfg.seed)
-                if scene is None:
-                    raise
+        scene = _load(cfg, native)
 
     if cfg.presplit > 0 and scene.num_triangles > 0:
         from .models.presplit import presplit_scene
 
         scene, _ = presplit_scene(scene, ratio=cfg.presplit)
 
-    tv = scene.triangle_vertices()
-    # The traversal kernels want leaves that actually hold `leaf_size`
-    # triangles; the reference's BVH_ELEMENT_THRESHOLD (options.h:58) plays
-    # that role at build time.
-    leaf_size = _pick_leaf_size(cfg)
-
-    bvh = flat = dbvh = packed_dev = None
+    leaf_size = cfg.leaf_size
+    bvh = flat = dbvh = None
     bvh_stats = None
     build_ms = 0.0
-    stack_depth = 64
+    depth = 0
     ds_kwargs = {}
-    packed = None
 
     if cfg.use_bvh:
-        t0 = time.perf_counter()
-        res = None
-        if native is not None:
-            res = native.build_bvh_native(
-                tv,
-                heuristic=cfg.bvh_heuristic,
-                max_depth=cfg.bvh_max_depth,
-                leaf_threshold=max(cfg.leaf_threshold, leaf_size),
-                sah_bins=cfg.sah_bins,
-                seed=cfg.seed,
-                leaf_size=leaf_size,
-                true_sah=cfg.true_sah,
-            )
-        # bf16 box rows: for bvh_width >= 4 the packers emit conservative
-        # (min|max) bf16 pairs in f32-viewed lanes, which the compiled
-        # Mosaic kernels consume directly (pack_box_bf16_pairs). Only the
-        # legacy binary (width 2) table still needs a raw bf16 dtype, which
-        # Mosaic cannot dynamically row-slice — that combination falls back
-        # to f32 on TPU with a warning.
-        packed_bf16 = cfg.bf16_bvh and (
-            cfg.bvh_width >= 4 or _pallas_bf16_supported()
+        tv = scene.triangle_vertices()
+        # The reference's BVH_ELEMENT_THRESHOLD (options.h:58) bounds the
+        # leaves at build time; flattening groups them into leaf_size slots.
+        build_kw = dict(
+            heuristic=cfg.bvh_heuristic,
+            max_depth=cfg.bvh_max_depth,
+            leaf_threshold=max(cfg.leaf_threshold, leaf_size),
+            sah_bins=cfg.sah_bins,
+            seed=cfg.seed,
+            true_sah=cfg.true_sah,
         )
-        if cfg.bf16_bvh and not packed_bf16:
-            import warnings
-
-            warnings.warn(
-                "bf16_bvh with bvh_width=2 is not supported by the "
-                "compiled TPU Pallas kernels (Mosaic cannot dynamically "
-                "slice single rows of 16-bit arrays); the pallas variant "
-                "will traverse f32 boxes. Use bvh_width>=4 for compiled "
-                "bf16 traversal.",
-                RuntimeWarning,
-                stacklevel=2,
-            )
+        t0 = time.perf_counter()
+        res = (
+            native.build_bvh_native(tv, leaf_size=leaf_size, **build_kw)
+            if native is not None else None
+        )
         if res is not None:
-            flat, packed, bvh_stats = res
-            if cfg.bvh_width == 8:
-                packed = pallas_trace.pack_bvh8(flat, tv)
-            elif cfg.bvh_width == 4:
-                packed = pallas_trace.pack_bvh4(flat, tv, bf16=packed_bf16)
-            elif packed_bf16:
-                packed = pallas_trace.PackedBVH(
-                    cbox=pallas_trace.cbox_to_bf16(packed.cbox),
-                    cmeta=packed.cmeta,
-                    tri=packed.tri,
-                    leaf_size=packed.leaf_size,
-                )
+            flat, bvh_stats = res
         else:
-            bvh = build_bvh(
-                tv,
-                heuristic=cfg.bvh_heuristic,
-                max_depth=cfg.bvh_max_depth,
-                leaf_threshold=max(cfg.leaf_threshold, leaf_size),
-                sah_bins=cfg.sah_bins,
-                seed=cfg.seed,
-                true_sah=cfg.true_sah,
-            )
+            bvh = build_bvh(tv, **build_kw)
             flat = flatten_bvh(bvh, tv, leaf_size=leaf_size)
-            pack_fn = {
-                8: pallas_trace.pack_bvh8,
-                4: pallas_trace.pack_bvh4,
-                2: pallas_trace.pack_bvh,
-            }[cfg.bvh_width]
-            packed = pack_fn(
-                flat, tv, bf16=packed_bf16 if cfg.bvh_width != 8 else False
-            )
             bvh_stats = bvh.stats
         build_ms = (time.perf_counter() - t0) * 1e3
         ds_kwargs["slot_map"] = flat.slot_map
 
     ds = device_scene_from_host(scene, ambient=cfg.ambient, **ds_kwargs)
-
-    # HBM streaming decision: every packed row (node, meta, triangle,
-    # attribute) lane-pads to at most 512 B of VMEM; scenes past the
-    # budget keep leaf rows in HBM (the kernels prefetch per leaf visit).
-    # Threshold measured on hardware (round 4): a 450k-triangle scene
-    # (126 MB by this row model) compiles and traces resident — and runs
-    # 1.38x faster than streamed at 300k (160.2 vs 221.1 ms primary
-    # pass) — while 600k (169 MB) fails to compile; the old 48 MB
-    # threshold streamed scenes that comfortably fit.
-    stream = False
-    if cfg.use_bvh and packed is not None:
-        n_rows = (
-            packed.cbox.shape[0] + packed.cmeta.shape[0]
-            + 2 * packed.tri.shape[0]   # tri + attr rows
-        )
-        resident = 512 * n_rows
-        stream = cfg.stream == "on" or (
-            cfg.stream == "auto"
-            and resident > pallas_trace.RESIDENT_ROWS_CEILING_BYTES
-        )
-
-    pallas_stack_depth = 96
-    npop = 2
     if cfg.use_bvh:
-        # Wide-pop needs the dual-pop kernels (width >= 4). Node tables
-        # stay VMEM-resident even when leaf rows stream, so the full
-        # inner-visit schedule applies to streamed scenes too.
-        npop = cfg.pop_width if (
-            cfg.dual_pop and cfg.bvh_width >= 4
-        ) else 2
-        pallas_stack_depth = pallas_trace.required_stack_depth(
-            flat.depth, {2: 2, 4: 4, 8: 8}[cfg.bvh_width], npop=npop
-        )
-        dbvh, _, stack_depth = trace_bvh.device_bvh_from_flat(
+        dbvh, _, depth = trace_bvh.device_bvh_from_flat(
             flat, bf16=cfg.bf16_bvh
         )
-        # Attribute rows let the closest kernels resolve shading attributes
-        # in-kernel (HitFull) — per-lane gathers are pathologically slow.
-        attr = pallas_trace.pack_attr(
-            flat, scene.mat_idx, scene.mats_kd, scene.mats_ks, scene.mats_kr
-        )
-        packed_dev = (
-            jnp.asarray(packed.cbox),
-            jnp.asarray(packed.cmeta),
-            jnp.asarray(packed.tri),
-            jnp.asarray(attr),
-        )
-        # MXU leaf path: upload the leaf C-matrices as ONE interleaved
-        # [hi(16) | lo(16)] bf16 table (the kernels take the three
-        # significant cross products of the hi/lo split at the MXU's
-        # native bf16 rate — f32-grade accuracy at ~1.6x the VPU leaf).
-        # Only the dual-pop non-streamed kernels consume it. Mosaic pads
-        # the 32-lane minor dim to 128, so the table's true VMEM cost is
-        # rows*128*2 bytes; gate on the whole scene block fitting VMEM
-        # (the padded table dominates: ~8 KB per 8-triangle leaf group).
-        # The streamed MXU leaf measured SLOWER than the streamed VPU leaf
-        # (DESIGN 9c), so streaming never consumes the C-matrix table —
-        # don't upload it for streamed scenes.
-        mxu_ok = (
-            cfg.mxu_leaf
-            and cfg.dual_pop
-            and cfg.bvh_width >= 4
-            and leaf_size in (4, 8)
-            and not stream
-            and packed.cmat is not None
-        )
-        cmi4 = False
-        if mxu_ok:
-            cmat_vmem = packed.cmat.shape[0] * 128 * 2
-            scene_vmem = (
-                packed.cbox.nbytes + packed.cmeta.nbytes
-                + packed.tri.nbytes + attr.nbytes
-            )
-            if cmat_vmem + scene_vmem > _MXU_VMEM_BUDGET:
-                # pack_cmi4 (4 groups per 128-lane row, 2 KB/group)
-                # DOES fit dragon-class tables resident (~61 MB packed +
-                # ~47 MB scene < the measured ~126 MB ceiling) and runs
-                # correct on hardware — but measured NEUTRAL-to-worse
-                # vs the VPU leaf on dragon (12.7-13.3 vs 12.3-12.6 ms
-                # primaries): the VPU leaf retires at ~240 ns/visit
-                # (cross-triangle ILP), not the 400-op serial model, so
-                # the MXU epilogue + per-group lane switches save
-                # nothing. Auto-selection stays off (set cmi4 = True
-                # here to re-enable); docs/DESIGN.md 9b.
-                mxu_ok = False
-        if mxu_ok:
-            if cmi4:
-                packed_dev = packed_dev + (
-                    jnp.asarray(
-                        pallas_trace.pack_cmi4(packed.cmat, leaf_size)
-                    ),
-                )
-            else:
-                cm = jnp.asarray(packed.cmat)
-                cmh = cm.astype(jnp.bfloat16)
-                cml = (cm - cmh.astype(jnp.float32)).astype(jnp.bfloat16)
-                packed_dev = packed_dev + (
-                    jnp.concatenate([cmh, cml], axis=1),
-                )
 
     return Pipeline(
         cfg=cfg,
@@ -453,36 +248,8 @@ def prepare(cfg: RenderConfig, scene: Optional[Scene] = None) -> Pipeline:
         bvh=bvh,
         flat=flat,
         dbvh=dbvh,
-        packed_dev=packed_dev,
         leaf_size=leaf_size,
-        stack_depth=stack_depth,
+        depth=depth,
         build_ms=build_ms,
         bvh_stats=bvh_stats,
-        pallas_stack_depth=pallas_stack_depth,
-        compressed=bool(packed is not None and getattr(packed, "compressed", False)),
-        stream=stream,
-        npop=npop,
-        # Adaptive pops subsume the separate coherent-bounce width (narrow
-        # visits happen automatically when the pending stack is shallow);
-        # the fixed-width schedule still wants the npop0=2 primary split.
-        npop0=0 if (cfg.adaptive_pop or npop <= 2) else 2,
-        adaptive=cfg.adaptive_pop and npop > 2,
     )
-
-
-def _pallas_bf16_supported() -> bool:
-    """Compiled Mosaic kernels reject dynamic single-row slices of 16-bit
-    arrays (sublane granularity 16); interpret mode (CPU tests) is fine."""
-    return jax.default_backend() != "tpu"
-
-
-def _pick_leaf_size(cfg: RenderConfig) -> int:
-    """Leaf group size for the kernels: power of two, 12 floats per triangle
-    must fit the 128-lane group row."""
-    if cfg.leaf_size is not None:
-        assert cfg.leaf_size * pallas_trace.TRI_STRIDE <= pallas_trace.LANES
-        return cfg.leaf_size
-    for cand in (8, 4, 2, 1):
-        if cand * pallas_trace.TRI_STRIDE <= pallas_trace.LANES:
-            return cand
-    return 1

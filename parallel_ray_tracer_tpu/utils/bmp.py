@@ -61,7 +61,11 @@ def read_bmp(path: str) -> np.ndarray:
     Enough to load the reference binary's output and our own for comparison.
     """
     with open(path, "rb") as f:
-        data = f.read()
+        return parse_bmp(f.read())
+
+
+def parse_bmp(data: bytes) -> np.ndarray:
+    """BMP file bytes -> (H, W, 3) uint8 RGB (see read_bmp)."""
     if data[:2] != b"BM":
         raise ValueError("not a BMP file")
     (offset,) = struct.unpack_from("<I", data, 10)

@@ -35,6 +35,19 @@ def summarize(times_ms: Sequence[float]) -> Dict[str, float]:
     }
 
 
+def quartiles(times_ms: Sequence[float]) -> Dict[str, float]:
+    """Median and quartiles (linear interpolation between order stats)."""
+    t = sorted(times_ms)
+
+    def q(p: float) -> float:
+        x = p * (len(t) - 1)
+        lo = int(math.floor(x))
+        hi = min(lo + 1, len(t) - 1)
+        return t[lo] + (t[hi] - t[lo]) * (x - lo)
+
+    return {"q25_ms": q(0.25), "median_ms": q(0.5), "q75_ms": q(0.75)}
+
+
 def format_summary(stats: Dict[str, float]) -> str:
     """The reference's metrics banner (cpu/src/main.c:199-209)."""
     lines = ["\n# Metrics #"]

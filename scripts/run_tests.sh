@@ -9,18 +9,22 @@
 # file runs exactly once: the last group is `tests/` with the isolated
 # modules --ignore'd, so a newly added test file is picked up automatically.
 #
+# The suite runs on the CPU backend (8 virtual devices, GPU kernels in the
+# Pallas interpreter). Card-only tests carry the `gpu` marker and skip
+# there; run them on the card with `python -m pytest tests/ -m gpu`.
+#
 # Usage: scripts/run_tests.sh [extra pytest args...]
 set -u
 cd "$(dirname "$0")/.."
 
 PY="${PY:-python}"
+export JAX_PLATFORMS="${JAX_PLATFORMS:-cpu}"
 ARGS=("-q" "$@")
 
 # Compile-heavy modules (interpret-mode pallas kernels, sharded meshes):
 # one process each.
 HEAVY=(
-  tests/test_kernel_variants.py
-  tests/test_fused.py
+  tests/test_gpu_trace.py
   tests/test_pallas_trace.py
   tests/test_sharded.py
   tests/test_reference_parity.py

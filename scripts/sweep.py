@@ -3,13 +3,14 @@
 The reference sweeps CUDA block shapes per kernel variant and collects
 stdout into metrics/<variant>/data_<block>.txt (gpu/naive.bat,
 gpu/fast_idx.bat, gpu/float_align_compression.bat, gpu/fuse.bat). Here the
-swept axis is the pixel-tile shape feeding the packet kernels (the packet is
-fixed at 1024 rays; the tile aspect trades spatial coherence), plus the
-variant ladder (bruteforce | jax | pallas) and the bf16-BVH toggle; results
-land in metrics/<variant>/data_<tile>.json via the CLI's --metrics-json.
+swept axis is the pixel-tile shape that orders the rays (the tile aspect
+trades spatial coherence within a kernel block or packet), plus the variant
+(gpu | jax | bruteforce) and the bf16-BVH toggle; results land in
+<out>/<variant>/data_<tile>.json via the CLI's --metrics-json. Each point is
+its own CLI process, one at a time; this parent never starts a JAX backend.
 
 Usage: python scripts/sweep.py [--scene car_boxed] [--resolution 720p]
-       [--iterations 5] [--variants pallas] [--out metrics]
+       [--iterations 5] [--variants gpu] [--out sweep_out]
 """
 
 from __future__ import annotations
@@ -29,23 +30,16 @@ def main() -> int:
     ap.add_argument("--iterations", type=int, default=5)
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--bounces", type=int, default=4)
-    ap.add_argument("--variants", default="pallas,jax")
+    ap.add_argument("--variants", default="gpu,jax")
     ap.add_argument("--tiles", default=",".join(TILES))
     ap.add_argument("--bf16", action="store_true")
-    ap.add_argument("--single-pop", action="store_true",
-                    help="sweep the single-pop schedule instead of dual")
-    ap.add_argument("--bvh-width", type=int, default=4)
-    ap.add_argument("--out", default="metrics")
+    ap.add_argument("--out", default="sweep_out")
     args = ap.parse_args()
 
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     failures = 0
     for variant in args.variants.split(","):
-        suffix = (
-            ("_bf16" if args.bf16 else "")
-            + ("_single" if args.single_pop else "")
-            + (f"_w{args.bvh_width}" if args.bvh_width != 4 else "")
-        )
+        suffix = "_bf16" if args.bf16 else ""
         outdir = os.path.join(args.out, variant + suffix)
         os.makedirs(outdir, exist_ok=True)
         for tile in args.tiles.split(","):
@@ -64,10 +58,6 @@ def main() -> int:
             ]
             if args.bf16:
                 cmd.append("--bf16-bvh")
-            if args.single_pop:
-                cmd.append("--no-dual-pop")
-            if args.bvh_width != 4:
-                cmd.extend(["--bvh-width", str(args.bvh_width)])
             print(f"[sweep] {variant} tile={tile} -> {dst}", flush=True)
             r = subprocess.run(cmd, cwd=repo)
             if r.returncode != 0:

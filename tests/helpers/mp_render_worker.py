@@ -69,7 +69,7 @@ def main():
     tv = scene.triangle_vertices()
     bvh = build_bvh(tv, heuristic=6, leaf_threshold=8)
     flat = flatten_bvh(bvh, tv, leaf_size=8)
-    dbvh, _, stack_depth = device_bvh_from_flat(flat)
+    dbvh, _, depth = device_bvh_from_flat(flat)
     ds = build_device_scene(
         jnp.asarray(scene.verts), scene.faces, scene.mat_idx,
         scene.mats_kd, scene.mats_ks, scene.mats_kr,
@@ -79,7 +79,7 @@ def main():
     assert mesh.devices.size == 8
     img = sharded.render_sharded(
         ds, dbvh, default_camera(), 64, 32, mesh,
-        bounces=1, leaf_size=8, stack_depth=stack_depth, variant="jax",
+        bounces=1, leaf_size=8, depth=depth, variant="jax",
     )
     # Replicate so every process holds the full frame, then fetch.
     img = jax.jit(

@@ -1,39 +1,59 @@
-"""Regression tests for the round-1 advisor findings (ADVICE.md).
+"""Regression tests for the round-1 advisor findings.
 
-1. SMEM traversal stacks are sized from the actual tree depth + kernel
-   arity instead of a fixed 96 (deep --max-depth trees could overflow).
+1. Traversal stacks are sized from the actual tree depth instead of a fixed
+   constant (deep --max-depth trees could overflow).
 2. The native loader path no longer drops spheres.obj.
-3. The tiny-scene (root-leaf) pack no longer relies on an "inverted AABB"
-   never hitting — the ordered slab test makes such a box unconstrained.
+3. A tiny scene whose root is a leaf traces exactly (no synthetic root).
 4. flatten_bvh fails loudly on an inner node with two dead children
    instead of recursing forever.
 """
-
-import os
 
 import numpy as np
 import pytest
 
 from parallel_ray_tracer_tpu.models.scene import Scene
-from parallel_ray_tracer_tpu.ops import pallas_trace
+from parallel_ray_tracer_tpu.ops import gpu_trace, trace_bvh
 from parallel_ray_tracer_tpu.ops.bvh import BVH, build_bvh
 from parallel_ray_tracer_tpu.ops.bvh_flat import flatten_bvh
 from parallel_ray_tracer_tpu.ops.vecmath import Vec3
 
 
+def _scene_for(tv):
+    n = tv.shape[0]
+    return Scene(
+        verts=tv.reshape(-1, 3), faces=np.arange(3 * n).reshape(n, 3),
+        mat_idx=np.zeros(n, np.int32), mats_kd=np.ones((1, 3), np.float32),
+        mats_ks=np.zeros((1, 3), np.float32),
+        mats_kr=np.zeros((1, 3), np.float32),
+        lights_pos=np.zeros((0, 3), np.float32),
+        lights_kl=np.zeros((0, 3), np.float32),
+    )
+
+
+def _kernel_tracer(tv, flat):
+    from parallel_ray_tracer_tpu.models.device_scene import (
+        device_scene_from_host,
+    )
+
+    ds = device_scene_from_host(_scene_for(tv), slot_map=flat.slot_map)
+    dbvh, L, depth = trace_bvh.device_bvh_from_flat(flat)
+    return gpu_trace.make_tracer(dbvh, ds, L, depth, interpret=True)
+
+
 class TestStackDepthGuard:
     def test_monotone_and_floor(self):
-        rsd = pallas_trace.required_stack_depth
-        # Shallow trees keep the round-1 default (stable kernel cache).
-        assert rsd(32, 2) == pallas_trace.STACK_DEPTH
-        assert rsd(0, 2) == pallas_trace.STACK_DEPTH
-        # Deep binary tree: depth+2 entries needed, beyond the default.
-        assert rsd(120, 2) == 122
-        # BVH4 collapses two levels per node but pushes up to 4 per pop.
-        assert rsd(120, 4) == max(96, 3 * 60 + 2)
-        assert rsd(121, 4) == 3 * 61 + 2
-        # BVH8: three levels per node, up to 8 pushes per pop.
-        assert rsd(120, 8) == 7 * 40 + 2
+        per_ray = gpu_trace.stack_depth_for
+        packet = trace_bvh.packet_stack_depth
+        # Per-ray: one pending sibling per level, at least one slot.
+        assert per_ray(0) == 1
+        assert per_ray(22) == 22
+        assert per_ray(120) == 120
+        # Packets push both children per level; shallow trees keep a floor.
+        assert packet(0) == 16
+        assert packet(120) == 244
+        depths = range(0, 200, 7)
+        assert all(per_ray(a) <= per_ray(b) for a, b in zip(depths, depths[1:]))
+        assert all(packet(d) >= per_ray(d) for d in depths)
 
     def test_pipeline_threads_depth(self, tiny_scene):
         from parallel_ray_tracer_tpu import pipeline
@@ -41,13 +61,11 @@ class TestStackDepthGuard:
 
         cfg = RenderConfig(width=32, height=32, use_native=False)
         pipe = pipeline.prepare(cfg, scene=tiny_scene)
-        assert pipe.pallas_stack_depth >= pallas_trace.required_stack_depth(
-            pipe.flat.depth, 4
-        )
+        assert pipe.depth == pipe.flat.depth
 
     def test_deep_tree_traces_in_interpret_mode(self):
         # 160 triangles stacked along one axis, leaf_threshold 1, midpoint
-        # splits -> a deep, skinny tree; the packed stack must cover it.
+        # splits; the per-ray stack must cover the tree.
         n = 160
         z = np.arange(n, dtype=np.float32)[:, None]
         base = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0]], np.float32)
@@ -56,9 +74,7 @@ class TestStackDepthGuard:
         )
         bvh = build_bvh(tv, heuristic=1, max_depth=64, leaf_threshold=1)
         flat = flatten_bvh(bvh, tv, leaf_size=2)
-        packed = pallas_trace.pack_bvh(flat, tv)
-        need = pallas_trace.required_stack_depth(flat.depth, 2)
-        R = pallas_trace.PACKET
+        R = 64
         o = Vec3(
             np.full((R,), 0.3, np.float32),
             np.full((R,), 0.3, np.float32),
@@ -69,28 +85,22 @@ class TestStackDepthGuard:
             np.zeros((R,), np.float32),
             np.ones((R,), np.float32),
         )
-        closest, _ = pallas_trace.make_tracer(
-            (packed.cbox, packed.cmeta, packed.tri),
-            leaf_size=2, interpret=True, stack_depth=need,
-        )
+        closest, _ = _kernel_tracer(tv, flat)
         h = closest(o, d)
         t = np.asarray(h.t)
         # Nearest stacked triangle is at z=0 -> t = 1.
         np.testing.assert_allclose(t, 1.0, atol=1e-5)
 
 
-class TestTinySceneRootLeafPack:
-    def test_both_children_alias_leaf(self):
+class TestTinySceneRootLeaf:
+    def test_root_is_leaf(self):
         tv = np.array(
             [[[0, 0, 0], [1, 0, 0], [0, 1, 0]]], np.float32
         )
         bvh = build_bvh(tv, heuristic=0, leaf_threshold=4)
         flat = flatten_bvh(bvh, tv, leaf_size=4)
-        packed = pallas_trace.pack_bvh(flat, tv)
-        # No inverted sentinel box anywhere in the node table.
-        assert (packed.cbox[:, 0:3] <= packed.cbox[:, 3:6]).all()
-        assert (packed.cbox[:, 6:9] <= packed.cbox[:, 9:12]).all()
-        assert packed.cmeta[0, 0] == packed.cmeta[0, 1] == -1
+        assert flat.n_nodes == 1 and flat.count[0] == 1 and flat.depth == 0
+        assert (flat.node_min[0] <= flat.node_max[0]).all()
 
     def test_single_triangle_hit_is_exact(self):
         tv = np.array(
@@ -98,8 +108,7 @@ class TestTinySceneRootLeafPack:
         )
         bvh = build_bvh(tv, heuristic=0, leaf_threshold=4)
         flat = flatten_bvh(bvh, tv, leaf_size=4)
-        packed = pallas_trace.pack_bvh(flat, tv)
-        R = pallas_trace.PACKET
+        R = 64
         o = Vec3(
             np.full((R,), 0.2, np.float32),
             np.full((R,), 0.2, np.float32),
@@ -110,10 +119,7 @@ class TestTinySceneRootLeafPack:
             np.zeros((R,), np.float32),
             np.full((R,), -1.0, np.float32),
         )
-        closest, occluded = pallas_trace.make_tracer(
-            (packed.cbox, packed.cmeta, packed.tri),
-            leaf_size=4, interpret=True,
-        )
+        closest, occluded = _kernel_tracer(tv, flat)
         h = closest(o, d)
         np.testing.assert_allclose(np.asarray(h.t), 2.0, atol=1e-5)
         assert (np.asarray(h.idx) == 0).all()

@@ -170,44 +170,28 @@ class TestSoftShadows:
 
 
 class TestDiffWithPallasTracer:
-    """Differentiable rendering THROUGH the production Pallas HitFull
-    tracer (interpret mode): the custom-VJP closest hit keeps the
-    kernel-resolved attributes on the fast path, materials get gradients
-    via the scatter-backed resolve, normals via the vertex recompute."""
+    """Differentiable rendering THROUGH the per-ray Pallas kernels
+    (interpret mode): the custom-VJP closest hit takes the kernel's frozen
+    topology, vertices get gradients via the analytic recompute, materials
+    via the shading gathers."""
 
     def _setup(self, tiny_scene):
-        from parallel_ray_tracer_tpu.ops import pallas_trace
-
         arrs = _scene_arrays(tiny_scene)
         tv = tiny_scene.triangle_vertices()
         bvh = build_bvh(tv, heuristic=6, leaf_threshold=8)
         flat = flatten_bvh(bvh, tv, leaf_size=8)
-        packed = pallas_trace.pack_bvh4(flat, tv)
-        attr = pallas_trace.pack_attr(
-            flat, tiny_scene.mat_idx, tiny_scene.mats_kd,
-            tiny_scene.mats_ks, tiny_scene.mats_kr,
-        )
-        packed_dev = (
-            jnp.asarray(packed.cbox), jnp.asarray(packed.cmeta),
-            jnp.asarray(packed.tri), jnp.asarray(attr),
-        )
-        sd = int(
-            __import__("parallel_ray_tracer_tpu.ops.pallas_trace",
-                       fromlist=["required_stack_depth"]
-                       ).required_stack_depth(flat.depth, 4)
-        )
-        return arrs, flat, packed_dev, sd
+        dbvh, _, depth = trace_bvh.device_bvh_from_flat(flat)
+        return arrs, flat, dbvh, depth
 
-    def _loss_pallas(self, tiny_scene, arrs, flat, packed_dev, sd, o, d,
-                     **scene_over):
-        from parallel_ray_tracer_tpu.ops import pallas_trace
+    def _loss_kernel(self, arrs, flat, dbvh, depth, o, d):
+        from parallel_ray_tracer_tpu.ops import gpu_trace
 
         def loss(verts, over):
             kw = dict(arrs)
             kw.update(over)
             ds = build_device_scene(verts, slot_map=flat.slot_map, **kw)
-            closest_fn, occluded_fn = pallas_trace.make_tracer(
-                packed_dev, 8, interpret=True, ds=ds, stack_depth=sd,
+            closest_fn, occluded_fn = gpu_trace.make_tracer(
+                dbvh, ds, 8, depth, interpret=True,
             )
             col = diff.trace_rays_diff(ds, closest_fn, occluded_fn, o, d, 2)
             return jnp.sum(col.x + col.y + col.z)
@@ -215,12 +199,10 @@ class TestDiffWithPallasTracer:
         return loss
 
     def test_forward_and_vertex_grads_match_brute(self, tiny_scene):
-        arrs, flat, packed_dev, sd = self._setup(tiny_scene)
+        arrs, flat, dbvh, depth = self._setup(tiny_scene)
         verts0 = jnp.asarray(tiny_scene.verts)
         o, d = _rays()
-        loss_p = self._loss_pallas(
-            tiny_scene, arrs, flat, packed_dev, sd, o, d
-        )
+        loss_p = self._loss_kernel(arrs, flat, dbvh, depth, o, d)
 
         def loss_b(verts, over):
             kw = dict(arrs)
@@ -238,37 +220,18 @@ class TestDiffWithPallasTracer:
         np.testing.assert_allclose(gp, gb, atol=2e-3, rtol=2e-3)
 
     def test_material_gradient_matches_fd(self, tiny_scene):
-        """The scatter-backed resolve's gradient must equal FD where the FD
-        evaluation REPACKS the kernel attribute rows from the perturbed
-        table (in training, attr rows are derived state refreshed from the
-        material table, like the BVH is refit as vertices move)."""
-        from parallel_ray_tracer_tpu.ops import pallas_trace
-
-        arrs, flat, packed_dev, sd = self._setup(tiny_scene)
+        """The material-table gradient (through the shading gathers) must
+        equal central finite differences of the kernel-traced loss."""
+        arrs, flat, dbvh, depth = self._setup(tiny_scene)
         verts0 = jnp.asarray(tiny_scene.verts)
         o, d = _rays()
         kd0 = jnp.asarray(tiny_scene.mats_kd)
+        loss0 = self._loss_kernel(arrs, flat, dbvh, depth, o, d)
 
         def loss_with_kd(kd):
-            """FD evaluation: repack the attr rows from the perturbed kd."""
-            attr = pallas_trace.pack_attr(
-                flat, tiny_scene.mat_idx, np.asarray(kd),
-                tiny_scene.mats_ks, tiny_scene.mats_kr,
-            )
-            pd = packed_dev[:3] + (jnp.asarray(attr),)
-            loss = self._loss_pallas(
-                tiny_scene, arrs, flat, pd, sd, o, d
-            )
-            return loss(verts0, {"mats_kd": jnp.asarray(kd)})
+            return loss0(verts0, {"mats_kd": jnp.asarray(kd)})
 
-        # AD evaluation: attr rows fixed at kd0 (they are primal-only);
-        # the gradient flows through the scatter-backed table resolve.
-        loss0 = self._loss_pallas(
-            tiny_scene, arrs, flat, packed_dev, sd, o, d
-        )
-        gkd = np.asarray(jax.grad(
-            lambda kd: loss0(verts0, {"mats_kd": kd})
-        )(kd0))
+        gkd = np.asarray(jax.grad(loss_with_kd)(kd0))
         h = 1e-3
         for (i, c) in [(0, 0), (1, 1), (2, 2)]:
             e = np.zeros_like(kd0)

@@ -28,21 +28,22 @@ def one_triangle_scene():
 
 
 class TestRootLeaf:
-    """T <= leaf_size collapses the whole tree into a single leaf; the
-    packed kernels need their synthetic-root path (pack_bvh[4] root-leaf)."""
+    """T <= leaf_size collapses the whole tree into a single leaf; every
+    tracer must handle a root that is a leaf."""
 
     @pytest.mark.parametrize("width", [2, 4])
     def test_one_triangle_all_variants(self, one_triangle_scene, width):
         cfg = RenderConfig(
             width=32, height=32, bounces=2, tile_rows=32, tile_cols=32,
-            bvh_heuristic=6, bvh_width=width,
+            bvh_heuristic=6, leaf_size=width,
         )
         pipe = pipeline.prepare(cfg, scene=one_triangle_scene)
+        assert pipe.flat.n_nodes == 1
         ref = np.asarray(pipe.render(variant="bruteforce"))
         img_j = np.asarray(pipe.render(variant="jax"))
-        img_p = np.asarray(pipe.render(variant="pallas", interpret=True))
+        img_g = np.asarray(pipe.render(variant="gpu", interpret=True))
         np.testing.assert_allclose(img_j, ref, atol=3e-5)
-        np.testing.assert_allclose(img_p, ref, atol=3e-5)
+        np.testing.assert_allclose(img_g, ref, atol=3e-5)
         # The triangle must actually be visible.
         assert ref.std() > 0.01
 
@@ -70,7 +71,7 @@ class TestUseBvhToggle:
             tile_rows=32, tile_cols=32,
         )
         pipe = pipeline.prepare(cfg, scene=tiny_scene)
-        assert pipe.packed_dev is None and pipe.dbvh is None
+        assert pipe.dbvh is None
         img = np.asarray(pipe.render())
         assert img.shape == (32, 32, 3)
 

@@ -27,8 +27,6 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-@pytest.mark.skipif(bool(os.environ.get("RT_TEST_TPU")),
-                    reason="CPU-backend multiprocess test")
 def test_two_process_render_matches_single_process(tiny_scene, tmp_path):
     scene_path = tmp_path / "scene.npz"
     np.savez(
@@ -44,9 +42,7 @@ def test_two_process_render_matches_single_process(tiny_scene, tmp_path):
     env["JAX_PLATFORMS"] = "cpu"
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
     # The workers must not inherit this process's coordinator detection.
-    for k in ("JAX_COORDINATOR_ADDRESS", "MEGASCALE_COORDINATOR_ADDRESS",
-              "TPU_WORKER_HOSTNAMES", "RT_TEST_TPU"):
-        env.pop(k, None)
+    env.pop("JAX_COORDINATOR_ADDRESS", None)
 
     outs = [tmp_path / f"img_{pid}.npy" for pid in (0, 1)]
     procs = [
@@ -88,7 +84,7 @@ def test_two_process_render_matches_single_process(tiny_scene, tmp_path):
     tv = tiny_scene.triangle_vertices()
     flat = flatten_bvh(build_bvh(tv, heuristic=6, leaf_threshold=8), tv,
                        leaf_size=8)
-    dbvh, _, stack_depth = device_bvh_from_flat(flat)
+    dbvh, _, depth = device_bvh_from_flat(flat)
     ds = build_device_scene(
         jnp.asarray(tiny_scene.verts), tiny_scene.faces,
         tiny_scene.mat_idx, tiny_scene.mats_kd, tiny_scene.mats_ks,
@@ -98,7 +94,7 @@ def test_two_process_render_matches_single_process(tiny_scene, tmp_path):
     ref = np.asarray(
         sharded.render_sharded(
             ds, dbvh, default_camera(), 64, 32, sharded.make_mesh(8),
-            bounces=1, leaf_size=8, stack_depth=stack_depth, variant="jax",
+            bounces=1, leaf_size=8, depth=depth, variant="jax",
         )
     )
     np.testing.assert_allclose(img0, ref, atol=1e-6, rtol=0)

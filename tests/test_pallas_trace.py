@@ -1,10 +1,9 @@
 """Pallas traversal kernels (interpret mode) vs the JAX packet reference and
-the brute-force oracle. On CPU these run through the Pallas interpreter; the
-compiled TPU path is exercised by bench.py and the driver's compile check.
+the brute-force oracle. On the CPU these run through the Pallas interpreter;
+the compiled GPU path is exercised by chip_smoke.py and `pytest -m gpu`.
 """
 
 import numpy as np
-import pytest
 import jax.numpy as jnp
 
 from parallel_ray_tracer_tpu.config import RenderConfig
@@ -12,37 +11,25 @@ from parallel_ray_tracer_tpu.models.camera import default_camera, ray_basis
 from parallel_ray_tracer_tpu.models.device_scene import device_scene_from_host
 from parallel_ray_tracer_tpu.ops.bvh import build_bvh
 from parallel_ray_tracer_tpu.ops.bvh_flat import flatten_bvh
-from parallel_ray_tracer_tpu.ops import pallas_trace, trace_bvh
+from parallel_ray_tracer_tpu.ops import gpu_trace, trace_bvh
 from parallel_ray_tracer_tpu.ops.render import (
     generate_rays_tiled,
     render_bruteforce,
-    render_bvh_pallas,
+    render_bvh,
 )
 from parallel_ray_tracer_tpu import pipeline
 
 
-def _packed(scene, heuristic=6, L=8, bf16=False, width=2):
+def _flat(scene, heuristic=6, L=8):
     tv = scene.triangle_vertices()
     bvh = build_bvh(tv, heuristic=heuristic, leaf_threshold=L)
-    flat = flatten_bvh(bvh, tv, leaf_size=L)
-    pack_fn = {
-        8: pallas_trace.pack_bvh8,
-        4: pallas_trace.pack_bvh4,
-        2: pallas_trace.pack_bvh,
-    }[width]
-    packed = pack_fn(flat, tv) if width == 8 else pack_fn(flat, tv, bf16=bf16)
-    dev = (
-        jnp.asarray(packed.cbox),
-        jnp.asarray(packed.cmeta),
-        jnp.asarray(packed.tri),
-    )
-    return flat, dev
+    return flatten_bvh(bvh, tv, leaf_size=L)
 
 
 class TestKernelsVsJaxReference:
     def test_closest_matches(self, car_only_scene):
         L = 8
-        flat, dev = _packed(car_only_scene, L=L)
+        flat = _flat(car_only_scene, L=L)
         ds = device_scene_from_host(car_only_scene, slot_map=flat.slot_map)
         dbvh, _, depth = trace_bvh.device_bvh_from_flat(flat)
         cam_arrays = tuple(
@@ -52,7 +39,7 @@ class TestKernelsVsJaxReference:
 
         cl_ref, _ = trace_bvh.make_tracer(dbvh, ds, L, depth, packet=1024)
         h_ref = cl_ref(o, d)
-        cl_p, _ = pallas_trace.make_tracer(dev, L, interpret=True)
+        cl_p, _ = gpu_trace.make_tracer(dbvh, ds, L, depth, interpret=True)
         h_p = cl_p(o, d)
 
         t_ref, t_p = np.asarray(h_ref.t), np.asarray(h_p.t)
@@ -64,7 +51,7 @@ class TestKernelsVsJaxReference:
 
     def test_occluded_matches(self, tiny_scene):
         L = 8
-        flat, dev = _packed(tiny_scene, L=L)
+        flat = _flat(tiny_scene, L=L)
         ds = device_scene_from_host(tiny_scene, slot_map=flat.slot_map)
         dbvh, _, depth = trace_bvh.device_bvh_from_flat(flat)
         cam_arrays = tuple(
@@ -82,71 +69,40 @@ class TestKernelsVsJaxReference:
         m2 = mag * mag
 
         b_ref = np.asarray(oc_ref(p, ldir, m2))
-        _, oc_p = pallas_trace.make_tracer(dev, L, interpret=True)
+        _, oc_p = gpu_trace.make_tracer(dbvh, ds, L, depth, interpret=True)
         b_p = np.asarray(oc_p(p, ldir, m2))
         assert (b_ref == b_p).all()
 
 
-class TestBVH4:
-    @pytest.mark.parametrize("width", [4, 8])
-    def test_wide_matches_binary(self, tiny_scene, width):
-        """4/8-wide and 2-wide kernels agree on hits."""
-        flat, dev2 = _packed(tiny_scene, width=2)
-        _, dev4 = _packed(tiny_scene, width=width)
-        cam_arrays = tuple(
-            jnp.asarray(a) for a in ray_basis(default_camera(), 64, 32)
+def _render_gpu(scene, flat, width, height, bounces, bf16=False):
+    ds = device_scene_from_host(scene, slot_map=flat.slot_map)
+    dbvh, L, depth = trace_bvh.device_bvh_from_flat(flat, bf16=bf16)
+    return np.asarray(
+        render_bvh(
+            ds, dbvh, default_camera(), width, height, variant="gpu",
+            bounces=bounces, leaf_size=L, depth=depth, interpret=True,
         )
-        o, d = generate_rays_tiled(cam_arrays, 64, 32, 32, 32)
-        cl2, _ = pallas_trace.make_tracer(dev2, 8, interpret=True)
-        cl4, _ = pallas_trace.make_tracer(dev4, 8, interpret=True)
-        h2, h4 = cl2(o, d), cl4(o, d)
-        t2, t4 = np.asarray(h2.t), np.asarray(h4.t)
-        assert ((t2 > 1e30) == (t4 > 1e30)).all()
-        mask = t2 < 1e30
-        np.testing.assert_allclose(t2[mask], t4[mask], atol=1e-5)
-
-    def test_bvh4_full_render(self, tiny_scene):
-        flat, dev4 = _packed(tiny_scene, heuristic=6, width=4)
-        ds = device_scene_from_host(tiny_scene, slot_map=flat.slot_map)
-        cam = default_camera()
-        img = np.asarray(
-            render_bvh_pallas(
-                ds, dev4, cam, 48, 32, bounces=2, leaf_size=8,
-                tile_rows=32, tile_cols=32, interpret=True,
-            )
-        )
-        ds_plain = device_scene_from_host(tiny_scene)
-        ref = np.asarray(render_bruteforce(ds_plain, cam, 48, 32, bounces=2))
-        np.testing.assert_allclose(img, ref, atol=3e-5)
+    )
 
 
 class TestPallasRenderVsOracle:
     def test_tiny_scene_full_render(self, tiny_scene):
-        flat, dev = _packed(tiny_scene, heuristic=3)
-        ds = device_scene_from_host(tiny_scene, slot_map=flat.slot_map)
-        cam = default_camera()
-        img = np.asarray(
-            render_bvh_pallas(
-                ds, dev, cam, 48, 32, bounces=3, leaf_size=8,
-                tile_rows=32, tile_cols=32, interpret=True,
-            )
-        )
+        flat = _flat(tiny_scene, heuristic=3)
+        img = _render_gpu(tiny_scene, flat, 48, 32, bounces=3)
         ds_plain = device_scene_from_host(tiny_scene)
-        ref = np.asarray(render_bruteforce(ds_plain, cam, 48, 32, bounces=3))
+        ref = np.asarray(
+            render_bruteforce(ds_plain, default_camera(), 48, 32, bounces=3)
+        )
         np.testing.assert_allclose(img, ref, atol=3e-5)
 
     def test_bf16_bvh_exact(self, tiny_scene):
-        flat, dev = _packed(tiny_scene, bf16=True)
-        ds = device_scene_from_host(tiny_scene, slot_map=flat.slot_map)
-        cam = default_camera()
-        img = np.asarray(
-            render_bvh_pallas(
-                ds, dev, cam, 48, 32, bounces=2, leaf_size=8,
-                tile_rows=32, tile_cols=32, interpret=True,
-            )
-        )
+        """The kernel reads the conservative bf16 boxes: hits unchanged."""
+        flat = _flat(tiny_scene)
+        img = _render_gpu(tiny_scene, flat, 48, 32, bounces=2, bf16=True)
         ds_plain = device_scene_from_host(tiny_scene)
-        ref = np.asarray(render_bruteforce(ds_plain, cam, 48, 32, bounces=2))
+        ref = np.asarray(
+            render_bruteforce(ds_plain, default_camera(), 48, 32, bounces=2)
+        )
         np.testing.assert_allclose(img, ref, atol=3e-5)
 
 
@@ -159,10 +115,10 @@ class TestPipeline:
         pipe = pipeline.prepare(cfg, scene=tiny_scene)
         assert pipe.build_ms > 0
         img_jax = np.asarray(pipe.render(variant="jax"))
-        img_pal = np.asarray(pipe.render(variant="pallas", interpret=True))
+        img_gpu = np.asarray(pipe.render(variant="gpu", interpret=True))
         img_ref = np.asarray(pipe.render(variant="bruteforce"))
         np.testing.assert_allclose(img_jax, img_ref, atol=3e-5)
-        np.testing.assert_allclose(img_pal, img_ref, atol=3e-5)
+        np.testing.assert_allclose(img_gpu, img_ref, atol=3e-5)
 
     def test_synthetic_scene_pipeline(self):
         cfg = RenderConfig(

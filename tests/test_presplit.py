@@ -2,7 +2,7 @@
 invariants + image equality with the unsplit scene.
 
 The reference has no presplit (its trees degrade on scene-sized wall
-triangles, cpu/src/bvh.c:78-267); these tests pin the TPU-side
+triangles, cpu/src/bvh.c:78-267); these tests pin the tree-quality
 optimization to "invisible except to the traversal cost".
 """
 

@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from parallel_ray_tracer_tpu.config import RenderConfig
+from parallel_ray_tracer_tpu.config import DEFAULT_ASSET_ROOTS, RenderConfig
 from parallel_ray_tracer_tpu.models import procgen
 from parallel_ray_tracer_tpu import pipeline
 
-ROOTS = ("/root/reference/assets",)
+ROOTS = DEFAULT_ASSET_ROOTS
 
 
 def test_dragon_profile():

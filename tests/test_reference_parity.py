@@ -1,7 +1,7 @@
 """Forward-image parity against the REFERENCE BINARY's own output.
 
 The fixtures under goldens/reference/ were produced by the unmodified
-reference CPU renderer (/root/reference/cpu, gcc -O3 -ffast-math
+reference CPU renderer (the reference checkout's cpu/, gcc -O3 -ffast-math
 -march=native -flto, default config: 1920x1080, 4 bounces, heuristic 3,
 seed 1, cpu/include/options.h) run on this host; the binary writes
 `<scene>.bmp` on every run (cpu/src/main.c:191, cpu/src/bmp_writer.c:122-146).
@@ -22,51 +22,22 @@ differing-pixel fraction and the mean error far above those measurements
 but far below any systematic shading/camera bias.
 """
 
-import gzip
-import os
-
-import numpy as np
 import pytest
 
 from parallel_ray_tracer_tpu.config import RenderConfig
 from parallel_ray_tracer_tpu import pipeline
-from parallel_ray_tracer_tpu.utils.bmp import read_bmp
-
-FIXTURE_DIR = os.path.join(os.path.dirname(__file__), "goldens", "reference")
-
-
-def _reference_frame(scene: str) -> np.ndarray:
-    """(1080, 1920, 3) uint8 RGB as the reference binary wrote it."""
-    path = os.path.join(FIXTURE_DIR, f"{scene}_1080p.bmp.gz")
-    tmp = path[:-3]
-    with gzip.open(path, "rb") as f:
-        data = f.read()
-    with open(tmp, "wb") as f:
-        f.write(data)
-    try:
-        return read_bmp(tmp)
-    finally:
-        os.unlink(tmp)
-
-
-def _quantize(img: np.ndarray) -> np.ndarray:
-    """Our float image -> bytes exactly like the reference writer
-    (clamp then truncate, cpu/src/bmp_writer.c:88-95)."""
-    return (np.clip(np.asarray(img), 0.0, 1.0) * 255.0).astype(np.uint8)
+from parallel_ray_tracer_tpu.utils.parity import (
+    parity,
+    quantize as _quantize,
+    reference_frame as _reference_frame,
+    within_bounds,
+)
 
 
 def _assert_parity(ours_u8, ref_u8, n_pixels, scene):
-    d = np.abs(ours_u8.astype(np.int32) - ref_u8.astype(np.int32)).max(axis=-1)
-    frac_any = float((d > 0).mean())
-    frac_big = float((d > 2).mean())
-    mean_err = float(d.mean())
-    # Full-frame measurements: frac_any <= 3.6e-4, frac_big <= 1.4e-4,
-    # mean <= 0.009. Bounds are ~10x those to absorb band sampling noise
-    # while still catching any systematic bias (which would push frac_any
-    # toward 1.0 and mean past 0.5).
-    assert frac_any < 5e-3, (scene, frac_any)
-    assert frac_big < 2e-3, (scene, frac_big)
-    assert mean_err < 0.1, (scene, mean_err)
+    stats = parity(ours_u8, ref_u8)
+    assert n_pixels == ours_u8.shape[0] * ours_u8.shape[1]
+    assert within_bounds(stats), (scene, stats)
 
 
 CFG = dict(width=1920, height=1080, bounces=4)
@@ -89,15 +60,12 @@ def test_bands_match_reference_binary(scene):
         )
 
 
-@pytest.mark.skipif(
-    not os.environ.get("RT_TEST_TPU"),
-    reason="full-frame parity on the real chip: RT_TEST_TPU=1",
-)
+@pytest.mark.gpu
 @pytest.mark.parametrize("scene", ["car_boxed", "car_only"])
-@pytest.mark.parametrize("variant", ["fused", "pallas"])
-def test_full_frame_matches_reference_binary(scene, variant):
+def test_full_frame_matches_reference_binary(scene):
+    """The served path (auto -> the per-ray GPU kernels) at full 1080p."""
     ref = _reference_frame(scene)
     cfg = RenderConfig(scene=scene, **CFG)
     pipe = pipeline.prepare(cfg)
-    img = pipe.render(variant=variant)
+    img = pipe.render()
     _assert_parity(_quantize(img), ref, CFG["width"] * CFG["height"], scene)

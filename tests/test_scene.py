@@ -100,17 +100,14 @@ def test_synthetic_scene():
 
 
 def test_reference_scene_counts():
-    """Scene size facts from BASELINE.md (car_only: 32,136 tris, 18 mats)."""
+    """Scene size facts from BASELINE.md (car_only: 32,136 tris, 18 mats),
+    on the bundled snapshot (a byte-exact dump of the OBJ parse)."""
     import os
 
-    path = "/root/reference/assets/car_only"
-    if not os.path.isfile(os.path.join(path, "triangles.obj")):
-        import pytest
+    from parallel_ray_tracer_tpu.config import DEFAULT_ASSET_ROOTS
+    from parallel_ray_tracer_tpu.models.scene import load_scene_npz
 
-        pytest.skip("reference assets unavailable")
-    from parallel_ray_tracer_tpu.models.scene import load_scene
-
-    sc = load_scene(path)
+    sc = load_scene_npz(os.path.join(DEFAULT_ASSET_ROOTS[0], "car_only.npz"))
     assert sc.num_triangles == 32136
     assert sc.verts.shape[0] == 17861
     assert sc.num_lights == 1

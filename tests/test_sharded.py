@@ -28,8 +28,8 @@ class TestShardedRender:
         img = np.asarray(
             sharded.render_sharded(
                 pipe.ds, pipe.dbvh, pipe.camera(), 64, 64, mesh,
-                bounces=2, leaf_size=pipe.leaf_size,
-                stack_depth=pipe.stack_depth, variant="jax",
+                bounces=2, leaf_size=pipe.leaf_size, depth=pipe.depth,
+                variant="jax",
             )
         )
         ref = np.asarray(pipe.render(variant="bruteforce"))
@@ -45,16 +45,16 @@ class TestShardedRender:
         img = np.asarray(
             sharded.render_sharded(
                 pipe.ds, pipe.dbvh, pipe.camera(), 96, 32, mesh,
-                bounces=1, leaf_size=pipe.leaf_size,
-                stack_depth=pipe.stack_depth, variant="jax",
+                bounces=1, leaf_size=pipe.leaf_size, depth=pipe.depth,
+                variant="jax",
             )
         )
         ref = np.asarray(pipe.render(variant="bruteforce"))
         np.testing.assert_allclose(img, ref, atol=3e-5)
 
     def test_pallas_variant_matches_oracle(self, tiny_scene, mesh):
-        """The PRODUCTION multi-chip configuration: Pallas packet kernels
-        inside shard_map (interpret mode on the CPU test mesh)."""
+        """The multi-device configuration of the served path: the per-ray
+        Pallas kernels inside shard_map (interpreted on the CPU mesh)."""
         cfg = RenderConfig(
             width=64, height=64, bounces=2, tile_rows=32, tile_cols=32,
             bvh_heuristic=6,
@@ -62,101 +62,34 @@ class TestShardedRender:
         pipe = pipeline.prepare(cfg, scene=tiny_scene)
         img = np.asarray(
             sharded.render_sharded(
-                pipe.ds, pipe.packed_dev, pipe.camera(), 64, 64, mesh,
-                bounces=2, leaf_size=pipe.leaf_size,
-                stack_depth=pipe.pallas_stack_depth, variant="pallas",
-                interpret=True,
+                pipe.ds, pipe.dbvh, pipe.camera(), 64, 64, mesh,
+                bounces=2, leaf_size=pipe.leaf_size, depth=pipe.depth,
+                variant="gpu", interpret=True,
             )
         )
         ref = np.asarray(pipe.render(variant="bruteforce"))
         np.testing.assert_allclose(img, ref, atol=3e-5)
 
-    def test_fused_variant_matches_oracle(self, tiny_scene, mesh):
-        """Whole-frame fused kernel inside shard_map."""
+    def test_production_schedule_bit_identical(self, tiny_scene, mesh):
+        """The multi-device path must run the single-device schedule: the
+        sharded image matches pipe.render() to float-ulp level (bit-
+        exactness across shard shapes is blocked only by XLA reassociating
+        the out-of-kernel shading arithmetic for different batch shapes)."""
         cfg = RenderConfig(
             width=64, height=64, bounces=2, tile_rows=32, tile_cols=32,
             bvh_heuristic=6,
         )
         pipe = pipeline.prepare(cfg, scene=tiny_scene)
+        ref = np.asarray(pipe.render(variant="gpu", interpret=True))
         img = np.asarray(
             sharded.render_sharded(
-                pipe.ds, pipe.packed_dev, pipe.camera(), 64, 64, mesh,
-                bounces=2, leaf_size=pipe.leaf_size,
-                stack_depth=pipe.pallas_stack_depth, variant="fused",
-                interpret=True,
+                pipe.ds, pipe.dbvh, pipe.camera(), 64, 64, mesh,
+                bounces=2, leaf_size=pipe.leaf_size, depth=pipe.depth,
+                variant="gpu", interpret=True, fast_light=cfg.fast_light,
+                reverse_shadows=cfg.reverse_shadows,
             )
         )
-        ref = np.asarray(pipe.render(variant="bruteforce"))
-        # rsqrt-vs-divide reassociation: tolerance slightly looser than
-        # the pass-based variants, still pixel-level agreement.
-        assert (np.abs(img - ref).max(axis=-1) < 1e-3).mean() > 0.995
-
-    def test_production_schedule_bit_identical(self, tiny_scene, mesh):
-        """The multi-device path must run the SAME kernel schedule as a
-        single device (round-2 verdict: render_sharded silently dropped
-        dual/npop/reverse_shadows): with the full knob set threaded
-        through, the sharded image matches pipe.render() to float-ulp
-        level (bit-exactness across shard shapes is blocked only by XLA
-        reassociating the out-of-kernel shading arithmetic differently
-        for different batch shapes — observed max diff 1.2e-7)."""
-        cfg = RenderConfig(
-            width=64, height=64, bounces=2, tile_rows=32, tile_cols=32,
-            bvh_heuristic=6,
-        )
-        pipe = pipeline.prepare(cfg, scene=tiny_scene)
-        # The production schedule (adaptive wide pops) must be in effect.
-        assert pipe.npop == 8 and pipe.npop0 == 0 and pipe.adaptive
-        for variant in ("pallas", "fused"):
-            ref = np.asarray(pipe.render(variant=variant, interpret=True))
-            img = np.asarray(
-                sharded.render_sharded(
-                    pipe.ds, pipe.packed_dev, pipe.camera(), 64, 64, mesh,
-                    bounces=2, leaf_size=pipe.leaf_size,
-                    stack_depth=pipe.pallas_stack_depth, variant=variant,
-                    interpret=True, compressed=pipe.compressed,
-                    dual=cfg.dual_pop, stream=pipe.stream, npop=pipe.npop,
-                    npop0=pipe.npop0, fast_light=cfg.fast_light,
-                    reverse_shadows=cfg.reverse_shadows,
-                    adaptive=pipe.adaptive,
-                )
-            )
-            np.testing.assert_allclose(
-                img, ref, atol=1e-6, rtol=0, err_msg=variant
-            )
-
-    def test_streamed_sharded_matches_resident_sharded(self, tiny_scene,
-                                                       mesh):
-        """Streaming x sharding (round-4 verdict #5): HBM-streamed leaf
-        rows under shard_map must produce the bit-identical image to the
-        resident sharded render. The sharded API threads stream=True
-        (parallel/sharded.py), but the composition had coverage nowhere
-        — it is exactly the kind of interaction that only breaks when
-        composed."""
-        cfg = RenderConfig(
-            width=64, height=64, bounces=2, tile_rows=32, tile_cols=32,
-            bvh_heuristic=6,
-        )
-        pipe = pipeline.prepare(cfg, scene=tiny_scene)
-        kw = dict(
-            bounces=2, leaf_size=pipe.leaf_size,
-            stack_depth=pipe.pallas_stack_depth, variant="pallas",
-            interpret=True, dual=True, npop=pipe.npop,
-            adaptive=pipe.adaptive,
-        )
-        img_res = np.asarray(
-            sharded.render_sharded(
-                pipe.ds, pipe.packed_dev[:4], pipe.camera(), 64, 64,
-                mesh, stream=False, **kw,
-            )
-        )
-        img_str = np.asarray(
-            sharded.render_sharded(
-                pipe.ds, pipe.packed_dev[:4], pipe.camera(), 64, 64,
-                mesh, stream=True, **kw,
-            )
-        )
-        assert img_res.std() > 0.01  # non-vacuous
-        np.testing.assert_array_equal(img_str, img_res)
+        np.testing.assert_allclose(img, ref, atol=1e-6, rtol=0)
 
     def test_no_fast_light_knob_respected(self, tiny_scene, mesh):
         """fast_light=False (USE_BVH_FAST_LIGHT=0 parity) must reach the
@@ -166,15 +99,12 @@ class TestShardedRender:
             bvh_heuristic=6, fast_light=False,
         )
         pipe = pipeline.prepare(cfg, scene=tiny_scene)
-        ref = np.asarray(pipe.render(variant="pallas", interpret=True))
+        ref = np.asarray(pipe.render(variant="gpu", interpret=True))
         img = np.asarray(
             sharded.render_sharded(
-                pipe.ds, pipe.packed_dev, pipe.camera(), 64, 32, mesh,
-                bounces=1, leaf_size=pipe.leaf_size,
-                stack_depth=pipe.pallas_stack_depth, variant="pallas",
-                interpret=True, compressed=pipe.compressed,
-                dual=cfg.dual_pop, stream=pipe.stream, npop=pipe.npop,
-                npop0=pipe.npop0, fast_light=False,
+                pipe.ds, pipe.dbvh, pipe.camera(), 64, 32, mesh,
+                bounces=1, leaf_size=pipe.leaf_size, depth=pipe.depth,
+                variant="gpu", interpret=True, fast_light=False,
                 reverse_shadows=cfg.reverse_shadows,
             )
         )
@@ -201,32 +131,27 @@ class TestShardedTraining:
         assert bool(jnp.isfinite(v).all())
         assert losses[-1] < losses[0]
 
-    def test_pallas_variant_step(self, tiny_scene, mesh):
-        """Training THROUGH the production Pallas tracer under shard_map
-        (diff wrapper: frozen topology + analytic recompute). The first
-        step's vertex update must closely match the brute-force tracer's
-        (same differentiable semantics away from silhouettes)."""
-        from parallel_ray_tracer_tpu.ops import pallas_trace
+    def _flat(self, tiny_scene):
         from parallel_ray_tracer_tpu.ops.bvh import build_bvh
         from parallel_ray_tracer_tpu.ops.bvh_flat import flatten_bvh
+        from parallel_ray_tracer_tpu.ops.trace_bvh import device_bvh_from_flat
 
         tv = tiny_scene.triangle_vertices()
         bvh = build_bvh(tv, heuristic=6, leaf_threshold=8)
         flat = flatten_bvh(bvh, tv, leaf_size=8)
-        packed = pallas_trace.pack_bvh4(flat, tv)
-        attr = pallas_trace.pack_attr(
-            flat, tiny_scene.mat_idx, tiny_scene.mats_kd,
-            tiny_scene.mats_ks, tiny_scene.mats_kr,
-        )
-        packed_dev = (
-            jnp.asarray(packed.cbox), jnp.asarray(packed.cmeta),
-            jnp.asarray(packed.tri), jnp.asarray(attr),
-        )
-        sd = pallas_trace.required_stack_depth(flat.depth, 4)
+        dbvh, _, depth = device_bvh_from_flat(flat)
+        return flat, dbvh, depth
+
+    def test_pallas_variant_step(self, tiny_scene, mesh):
+        """Training THROUGH the per-ray kernels under shard_map (diff
+        wrapper: frozen topology + analytic recompute). The first step's
+        vertex update must closely match the brute-force tracer's (same
+        differentiable semantics away from silhouettes)."""
+        flat, dbvh, depth = self._flat(tiny_scene)
         step_p, prep_p = sharded.make_train_step(
             tiny_scene, mesh, 64, 32, bounces=1, lr=1e-3,
-            variant="pallas", tracer_data=packed_dev, leaf_size=8,
-            stack_depth=sd, slot_map=flat.slot_map, interpret=True,
+            variant="gpu", bvh=dbvh, leaf_size=8, depth=depth,
+            slot_map=flat.slot_map, interpret=True,
         )
         step_b, prep_b = sharded.make_train_step(
             tiny_scene, mesh, 64, 32, bounces=1, lr=1e-3,
@@ -243,34 +168,15 @@ class TestShardedTraining:
 
     def test_train_forward_matches_render_sharded(self, tiny_scene, mesh):
         """The training-step forward must render EXACTLY what
-        render_sharded renders at identical flags (round-3 verdict #7:
-        make_train_step silently dropped npop0/fast_light/
-        reverse_shadows). With target = the rendered image, the loss of
-        the first step must be ~0."""
-        from parallel_ray_tracer_tpu.ops import pallas_trace
-        from parallel_ray_tracer_tpu.ops.bvh import build_bvh
-        from parallel_ray_tracer_tpu.ops.bvh_flat import flatten_bvh
-
-        tv = tiny_scene.triangle_vertices()
-        bvh = build_bvh(tv, heuristic=6, leaf_threshold=8)
-        flat = flatten_bvh(bvh, tv, leaf_size=8)
-        packed = pallas_trace.pack_bvh4(flat, tv)
-        attr = pallas_trace.pack_attr(
-            flat, tiny_scene.mat_idx, tiny_scene.mats_kd,
-            tiny_scene.mats_ks, tiny_scene.mats_kr,
-        )
-        packed_dev = (
-            jnp.asarray(packed.cbox), jnp.asarray(packed.cmeta),
-            jnp.asarray(packed.tri), jnp.asarray(attr),
-        )
-        sd = pallas_trace.required_stack_depth(flat.depth, 4)
-        flags = dict(npop=8, npop0=2, fast_light=True,
-                     reverse_shadows=True, adaptive=True)
+        render_sharded renders at identical flags: with target = the
+        rendered image, the loss of the first step must be ~0."""
         from parallel_ray_tracer_tpu.models.camera import default_camera
         from parallel_ray_tracer_tpu.models.device_scene import (
             build_device_scene,
         )
 
+        flat, dbvh, depth = self._flat(tiny_scene)
+        flags = dict(fast_light=True, reverse_shadows=True)
         ds = build_device_scene(
             jnp.asarray(tiny_scene.verts), tiny_scene.faces,
             tiny_scene.mat_idx, tiny_scene.mats_kd, tiny_scene.mats_ks,
@@ -279,16 +185,15 @@ class TestShardedTraining:
         )
         img = np.asarray(
             sharded.render_sharded(
-                ds, packed_dev, default_camera(), 64, 32, mesh,
-                bounces=1, leaf_size=8, stack_depth=sd,
-                variant="pallas", interpret=True, **flags,
+                ds, dbvh, default_camera(), 64, 32, mesh,
+                bounces=1, leaf_size=8, depth=depth,
+                variant="gpu", interpret=True, **flags,
             )
         )
         step_p, prep_p = sharded.make_train_step(
             tiny_scene, mesh, 64, 32, bounces=1, lr=0.0,
-            variant="pallas", tracer_data=packed_dev, leaf_size=8,
-            stack_depth=sd, slot_map=flat.slot_map, interpret=True,
-            **flags,
+            variant="gpu", bvh=dbvh, leaf_size=8, depth=depth,
+            slot_map=flat.slot_map, interpret=True, **flags,
         )
         # image -> tile-major target, padded to the device count
         tiles = (

@@ -8,7 +8,7 @@ import jax.numpy as jnp
 from parallel_ray_tracer_tpu.models.scene import Scene, load_spheres
 from parallel_ray_tracer_tpu.models.device_scene import device_scene_from_host
 from parallel_ray_tracer_tpu.models.camera import default_camera
-from parallel_ray_tracer_tpu.ops.render import render_bruteforce, render_bvh_jax
+from parallel_ray_tracer_tpu.ops.render import render_bruteforce, render_bvh
 from parallel_ray_tracer_tpu.ops.bvh import build_bvh
 from parallel_ray_tracer_tpu.ops.bvh_flat import flatten_bvh
 from parallel_ray_tracer_tpu.ops import trace_bvh
@@ -62,9 +62,9 @@ def test_spheres_in_bvh_variant_match_bruteforce(sphere_scene):
     dbvh, L, depth = trace_bvh.device_bvh_from_flat(flat)
     cam = default_camera()
     img_bvh = np.asarray(
-        render_bvh_jax(
-            ds, dbvh, cam, 64, 32, bounces=2, leaf_size=L,
-            stack_depth=depth, tile_rows=32, tile_cols=32,
+        render_bvh(
+            ds, dbvh, cam, 64, 32, variant="jax", bounces=2,
+            leaf_size=L, depth=depth, tile_rows=32, tile_cols=32,
         )
     )
     ds_plain = device_scene_from_host(sphere_scene)

@@ -12,7 +12,7 @@ from parallel_ray_tracer_tpu.models.camera import default_camera
 from parallel_ray_tracer_tpu.models.device_scene import device_scene_from_host
 from parallel_ray_tracer_tpu.ops.bvh import build_bvh
 from parallel_ray_tracer_tpu.ops.bvh_flat import compress_bf16, flatten_bvh
-from parallel_ray_tracer_tpu.ops.render import render_bruteforce, render_bvh_jax
+from parallel_ray_tracer_tpu.ops.render import render_bruteforce, render_bvh
 from parallel_ray_tracer_tpu.ops.trace_bvh import device_bvh_from_flat
 
 
@@ -73,9 +73,9 @@ class TestPacketVsBrute:
         bvh, L, depth = device_bvh_from_flat(flat)
         cam = default_camera()
         img_bvh = np.asarray(
-            render_bvh_jax(
-                ds, bvh, cam, 64, 48, bounces=3, leaf_size=L,
-                stack_depth=depth, tile_rows=16, tile_cols=16,
+            render_bvh(
+                ds, bvh, cam, 64, 48, variant="jax", bounces=3,
+                leaf_size=L, depth=depth, tile_rows=16, tile_cols=16,
             )
         )
         ds_plain = device_scene_from_host(tiny_scene)
@@ -88,9 +88,9 @@ class TestPacketVsBrute:
         bvh, L, depth = device_bvh_from_flat(flat)
         cam = default_camera()
         img_bvh = np.asarray(
-            render_bvh_jax(
-                ds, bvh, cam, 64, 36, bounces=2, leaf_size=L,
-                stack_depth=depth, tile_rows=8, tile_cols=32,
+            render_bvh(
+                ds, bvh, cam, 64, 36, variant="jax", bounces=2,
+                leaf_size=L, depth=depth, tile_rows=8, tile_cols=32,
             )
         )
         ds_plain = device_scene_from_host(car_only_scene)
@@ -106,9 +106,9 @@ class TestPacketVsBrute:
         bvh, L, depth = device_bvh_from_flat(flat, bf16=True)
         cam = default_camera()
         img = np.asarray(
-            render_bvh_jax(
-                ds, bvh, cam, 64, 48, bounces=3, leaf_size=L,
-                stack_depth=depth, tile_rows=16, tile_cols=16,
+            render_bvh(
+                ds, bvh, cam, 64, 48, variant="jax", bounces=3,
+                leaf_size=L, depth=depth, tile_rows=16, tile_cols=16,
             )
         )
         ds_plain = device_scene_from_host(tiny_scene)
@@ -123,9 +123,9 @@ class TestPacketVsBrute:
         bvh, L, depth = device_bvh_from_flat(flat)
         cam = default_camera()
         img = np.asarray(
-            render_bvh_jax(
-                ds, bvh, cam, 50, 37, bounces=2, leaf_size=L,
-                stack_depth=depth, tile_rows=16, tile_cols=16,
+            render_bvh(
+                ds, bvh, cam, 50, 37, variant="jax", bounces=2,
+                leaf_size=L, depth=depth, tile_rows=16, tile_cols=16,
             )
         )
         assert img.shape == (37, 50, 3)

@@ -1,8 +1,8 @@
-"""Auto variant resolution + fused band rendering (round-3 verdict #5).
+"""Variant resolution + band rendering on the served path.
 
-The headline fused path must be (a) the default where the prepared state
-supports it ("auto" -> "fused"), (b) reachable from the checkpoint/resume
-band renderer, bit-identical to the same rows of a full-frame render.
+The per-ray GPU kernel must be (a) the default ("auto" -> "gpu") whatever
+the prepared state, (b) reachable from the checkpoint/resume band renderer,
+bit-identical to the same rows of a full-frame render.
 """
 
 import dataclasses
@@ -18,15 +18,21 @@ CFG = dict(width=64, height=64, bounces=2, tile_rows=32, tile_cols=32,
            bvh_heuristic=6)
 
 
+@pytest.fixture
+def on_gpu(monkeypatch):
+    """Resolution as it happens on a GPU backend (no kernel runs)."""
+    monkeypatch.setattr(pipeline.jax, "default_backend", lambda: "gpu")
+
+
 class TestResolvedVariant:
-    def test_auto_picks_fused_for_sphere_free_resident(self, tiny_scene):
+    def test_auto_picks_gpu_kernel(self, tiny_scene, on_gpu):
         pipe = pipeline.prepare(RenderConfig(**CFG), scene=tiny_scene)
         assert pipe.cfg.variant == "auto"
-        assert pipe.resolved_variant() == "fused"
+        assert pipe.resolved_variant() == "gpu"
 
-    def test_auto_keeps_fused_with_spheres(self, tiny_scene):
-        """Spheres are first-class in the fused kernel since round 3 (dense
-        in-kernel sphere pass, ops/pallas_trace.py) — auto stays fused."""
+    def test_auto_keeps_gpu_with_spheres(self, tiny_scene, on_gpu):
+        """Spheres ride a dense post-pass after the kernel (ops/spheres.py),
+        so auto stays on the kernel."""
         scene = dataclasses.replace(
             tiny_scene,
             spheres_center=np.array([[0.0, 0.0, 1.5]], np.float32),
@@ -34,19 +40,13 @@ class TestResolvedVariant:
             spheres_mat=np.array([1], np.int32),
         )
         pipe = pipeline.prepare(RenderConfig(**CFG), scene=scene)
-        assert pipe.resolved_variant() == "fused"
+        assert pipe.resolved_variant() == "gpu"
 
-    def test_auto_falls_back_without_fast_light(self, tiny_scene):
+    def test_auto_keeps_gpu_without_fast_light(self, tiny_scene, on_gpu):
         pipe = pipeline.prepare(
             RenderConfig(fast_light=False, **CFG), scene=tiny_scene
         )
-        assert pipe.resolved_variant() == "pallas"
-
-    def test_auto_falls_back_for_binary_bvh(self, tiny_scene):
-        pipe = pipeline.prepare(
-            RenderConfig(bvh_width=2, **CFG), scene=tiny_scene
-        )
-        assert pipe.resolved_variant() == "pallas"
+        assert pipe.resolved_variant() == "gpu"
 
     def test_no_bvh_means_bruteforce(self, tiny_scene):
         pipe = pipeline.prepare(
@@ -59,15 +59,15 @@ class TestResolvedVariant:
         assert pipe.resolved_variant("jax") == "jax"
 
 
-class TestFusedBand:
+class TestGpuBand:
     def test_band_bit_identical_to_full_frame_rows(self, tiny_scene):
-        """--checkpoint with the fused (headline) variant: bands must equal
-        the same rows of a whole-frame fused render exactly."""
+        """--checkpoint with the gpu kernel: bands must equal the same rows
+        of a whole-frame render exactly."""
         pipe = pipeline.prepare(RenderConfig(**CFG), scene=tiny_scene)
-        full = np.asarray(pipe.render(variant="fused", interpret=True))
+        full = np.asarray(pipe.render(variant="gpu", interpret=True))
         for y0 in (0, 32):
             band = np.asarray(
-                pipe.render_band(y0, 32, variant="fused", interpret=True)
+                pipe.render_band(y0, 32, variant="gpu", interpret=True)
             )
             np.testing.assert_array_equal(band, full[y0 : y0 + 32])
 
@@ -75,7 +75,7 @@ class TestFusedBand:
         """render_band with no variant follows the auto resolution."""
         pipe = pipeline.prepare(RenderConfig(**CFG), scene=tiny_scene)
         band = np.asarray(pipe.render_band(0, 32, interpret=True))
-        fused = np.asarray(
-            pipe.render_band(0, 32, variant="fused", interpret=True)
+        gpu = np.asarray(
+            pipe.render_band(0, 32, variant="gpu", interpret=True)
         )
-        np.testing.assert_array_equal(band, fused)
+        np.testing.assert_array_equal(band, gpu)
